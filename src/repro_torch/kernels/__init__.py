@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels for the hot spots, with their plain versions.
+
+Layout per kernel, mirroring ``repro.kernels``: ``ref.py`` (the plain
+PyTorch version), ``<name>.py`` (the ctypes binding of the CUDA source in
+``repro_torch/csrc/``), ``ops.py`` (the public op: checks its inputs, runs
+the plain version for a CPU tensor and launches the kernel for a CUDA
+tensor, counting launches).
+
+Kernels ported so far:
+
+- ``distance`` -- batched l2 / ip distance matrix (``csrc/distance.cu``).
+- ``topk``     -- k smallest per row, ties to the lowest index
+  (``csrc/topk.cu``).
+
+``qdist`` carries only its quantizer (``ops.quantize_int8``), which the
+reference writes in plain jnp; its kernel and ``flash`` are still to come.
+"""
