@@ -9,8 +9,9 @@ non-zero without its last line):
 2. build    -- nvcc builds every kernel of the port, one process per source.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                (distance within rtol 1e-4 / atol 2e-3, topk ids and values
-               exact), then timed at the main path's shapes beside the
-               plain version, one PyTorch library call and the card's bound.
+               exact, flash within 2e-3 in fp32 and 2e-2 in bf16), then
+               timed at the main path's shapes beside the plain version,
+               one PyTorch library call and the card's bound.
 4. main     -- the serving path at SIFT1M scale (1,000,000 x 128 base,
                10,000 queries, gt on the card): build, then serve 2,048
                requests through AnnsServer (max_batch 64, k 10, ef 64) for
@@ -20,6 +21,15 @@ non-zero without its last line):
 5. ref20k   -- recall@10 of graph / quantized_prefilter at 20,000 vectors
                against the JAX package's numbers on the same data, the
                optimized (alpha-pruned) variant, and the CLI driver.
+6. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
+               the 114M-parameter policy (fp32, full width and depth) samples
+               GRPO groups of 6 programs, each built and swept on the graph
+               engine at 5,000 x 128 and scored by the banded AUC, then
+               takes a GRPO + AdamW step; 2 iterations of each of the four
+               ported modules.  The flash counter is set to 0 just before
+               and read just after.  The first update is held against the
+               same GRPO + AdamW step on the CPU from the same weights and
+               batch.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -81,7 +91,7 @@ def phase_device() -> str:
 # ---------------------------------------------------------------------------
 # 2. build
 # ---------------------------------------------------------------------------
-KERNELS = ("distance", "topk")
+KERNELS = ("distance", "topk", "flash")
 
 
 def phase_build() -> None:
@@ -243,7 +253,92 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", **out["topk"]})
     del ds_, args
     torch.cuda.empty_cache()
+    out["flash"] = kernel_flash(gen)
+    emit({"phase": "kernel", **out["flash"]})
+    torch.cuda.empty_cache()
     return out
+
+
+#: the reference's five shapes (tests/test_kernels.py), ragged S, D 80, a
+#: group of 4, window 64, softcap 30, and the policy's prefill shapes:
+#: (B, S, Hq, Hk, D, window, softcap)
+FLASH_SHAPES = [(2, 256, 4, 2, 64, 0, 0.0), (1, 256, 8, 8, 128, 0, 50.0),
+                (2, 256, 4, 1, 80, 128, 0.0), (1, 512, 2, 2, 64, 0, 0.0),
+                (1, 128, 16, 4, 128, 64, 30.0), (2, 35, 8, 2, 80, 0, 0.0),
+                (1, 200, 4, 1, 64, 64, 30.0), (2, 333, 8, 2, 32, 0, 0.0),
+                (6, 35, 12, 12, 64, 0, 0.0), (6, 128, 12, 12, 64, 0, 0.0)]
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def kernel_flash(gen) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_ref
+
+    dev = torch.device("cuda")
+
+    def qkv(B, S, Hq, Hk, D, dtype=torch.float32, n=1):
+        return [tuple(torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
+                      for h in (Hq, Hk, Hk)) for _ in range(n)]
+
+    err = {}
+    for B, S, Hq, Hk, D, win, cap in FLASH_SHAPES:
+        for dtype, tol in FLASH_TOL.items():
+            ((q, k, v),) = qkv(B, S, Hq, Hk, D, dtype)
+            kw = dict(q_scale=D ** -0.5, window=win, softcap=cap)
+            got = flash_ops.causal_attention(q, k, v, **kw)
+            want = flash_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            e = float((got.float() - want.float()).abs().max())
+            err[str(dtype)] = max(err.get(str(dtype), 0.0), e)
+    # causality: changing future kv must not change past outputs
+    ((q, k, v),) = qkv(1, 256, 2, 2, 64)
+    o1 = flash_ops.causal_attention(q, k, v, q_scale=0.125)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 128:], v2[:, 128:] = 0.0, 9.0
+    o2 = flash_ops.causal_attention(q, k2, v2, q_scale=0.125)
+    torch.testing.assert_close(o1[:, :128], o2[:, :128], rtol=1e-5, atol=1e-5)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=q.shape[-1] ** -0.5)
+
+    timed = {}
+    reps = 50
+    for B, S, H, D in ((6, 35, 12, 64), (6, 128, 12, 64)):
+        args = qkv(B, S, H, H, D, n=reps)
+        kernel = (lambda q, k, v: flash_ops.causal_attention(
+            q, k, v, q_scale=D ** -0.5))
+        plain = (lambda q, k, v: flash_ref(q, k, v, q_scale=D ** -0.5))
+        q, k, v = args[0]
+        torch.testing.assert_close(sdpa(q, k, v).transpose(1, 2),
+                                   flash_ref(q, k, v, q_scale=D ** -0.5),
+                                   rtol=2e-3, atol=2e-3)
+        ms, plain_ms, lib_ms = (device_ms(f, args) for f in (kernel, plain, sdpa))
+        event_ms = {n: time_ms(f, args) for n, f in
+                    (("kernel", kernel), ("plain", plain), ("library", sdpa))}
+        b_ms, b_by = bound(4.0 * 4 * B * S * H * D,
+                           4.0 * B * H * D * S * (S + 1) / 2)
+        timed[(B, S, H, D)] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": lib_ms,
+                               "per_call_event_ms": event_ms}
+        del args
+    main_shape, long_shape = timed
+    return {"name": "flash", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash/flash.py:84",
+            "max_abs_err": err[str(torch.float32)],
+            "max_abs_err_bf16": err[str(torch.bfloat16)],
+            "tolerance": "fp32 rtol/atol 2e-3; bf16 rtol/atol 2e-2",
+            **timed[main_shape],
+            "library_call": "F.scaled_dot_product_attention(is_causal=True)",
+            "shape": list(main_shape), "dtype": "float32",
+            "at_shape_6x128x12x64": timed[long_shape]}
 
 
 # ---------------------------------------------------------------------------
@@ -398,12 +493,196 @@ def phase_ref20k() -> None:
     emit({"phase": "ref20k.cli", "backend": "brute_force", "recall@10": rec})
 
 
+# ---------------------------------------------------------------------------
+# 6. the CRINN RL loop
+# ---------------------------------------------------------------------------
+RL_ITERS = 2
+KL_ROUNDING = 1e-6
+RL_EF_SWEEP = (16, 24, 32, 48, 64, 96, 128)
+
+
+def glass_curve(ds) -> dict:
+    """recall@10 and QPS of the GLASS baseline over the RL loop's ef sweep,
+    and its banded AUC (the reward's denominator)."""
+    from repro_torch.anns import SearchParams, registry
+    from repro_torch.anns.bench import measure_point
+    from repro_torch.anns.engine import GLASS_BASELINE
+    from repro_torch.core.reward import banded_auc
+    backend = registry.create("graph", GLASS_BASELINE, metric=ds.metric,
+                              device="cuda")
+    backend.build(ds.base)
+    pts = [measure_point(backend, ds, params=SearchParams(k=10, ef=ef),
+                         repeats=2) for ef in RL_EF_SWEEP]
+    rec = [p.recall for p in pts]
+    qps = [p.qps for p in pts]
+    return {"n_base": len(ds.base), "ef": list(RL_EF_SWEEP), "recall@10": rec,
+            "qps": qps, "banded_auc": banded_auc(np.array(rec), np.array(qps))[0]}
+
+
+def check_first_update(opt, first: dict, loss_and_grad) -> dict:
+    """The card's first GRPO + AdamW step against the same step on the CPU
+    from the same weights and batch: the loss within 1e-5 and the new
+    weights within 1e-6 on at least 99.9% of elements and within 2.5 lr
+    on all (a first step moves a weight by lr g / (|g| + eps), so a
+    near-zero gradient whose sign differs moves it by up to 2 lr)."""
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    check(first.get("step") == 0 and "batch" in first,
+          "the first update was not recorded")
+    t0 = time.perf_counter()
+    cpu = model.DecoderLM(opt.policy.cfg, device="cpu")
+    params = dict(cpu.named_parameters())
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(first["before"][n])
+    (loss, _), grads = loss_and_grad(cpu, first["batch"], opt.policy.rt,
+                                     opt.gcfg)
+    adamw_update(params, grads, adamw_init(params, opt.opt_cfg), opt.opt_cfg)
+    diff = torch.cat([(first["after"][n] - p.detach()).abs().flatten()
+                      for n, p in params.items()])
+    lr = opt.opt_cfg.lr
+    out = {"loss_card": first["loss"], "loss_cpu": float(loss),
+           "max_abs_diff": float(diff.max()),
+           "share_within_1e-6": float((diff <= 1e-6).double().mean()),
+           "elements": diff.numel(), "lr": lr,
+           "batch_shape": list(first["batch"]["tokens"].shape),
+           "cpu_seconds": time.perf_counter() - t0}
+    check(abs(out["loss_card"] - out["loss_cpu"]) <= 1e-5
+          and out["share_within_1e-6"] >= 0.999
+          and out["max_abs_diff"] <= 2.5 * lr,
+          f"the card's first update differs from the CPU's: {out}")
+    return out
+
+
+def phase_rl() -> int:
+    """``train_crinn.main`` on the card; returns the flash launches of the
+    run.  Rollouts are recorded by wrapping ``Policy.sample_group``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import Policy
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.launch import train_crinn
+    from repro_torch.models import model
+
+    from repro_torch.core import optimizer_loop
+
+    groups = []
+    sample_group = Policy.sample_group
+    loss_and_grad = optimizer_loop.grpo_loss_and_grad
+    update_policy = optimizer_loop.CrinnOptimizer._update_policy
+    first = {}          # the first update's batch and weights, on the CPU
+
+    def recording(self, *args, **kwargs):
+        out = sample_group(self, *args, **kwargs)
+        groups.append(out)
+        return out
+
+    def recording_grad(model_, batch, *args):
+        first.setdefault("batch", {k: v.cpu() for k, v in batch.items()})
+        return loss_and_grad(model_, batch, *args)
+
+    def recording_update(self, rollouts, rewards):
+        if "after" in first:
+            return update_policy(self, rollouts, rewards)
+        first["step"] = self.opt_state["step"]
+        first["before"] = {n: p.detach().cpu().clone()
+                           for n, p in self.params.items()}
+        out = update_policy(self, rollouts, rewards)
+        first["after"] = {n: p.detach().cpu() for n, p in self.params.items()}
+        first["loss"] = out[0]
+        return out
+
+    Policy.sample_group = recording
+    optimizer_loop.grpo_loss_and_grad = recording_grad
+    optimizer_loop.CrinnOptimizer._update_policy = recording_update
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        flash_ops.launches = 0
+        res = train_crinn.main(["--iters", str(RL_ITERS), "--out",
+                                os.path.join(ROOT, "build", "crinn_run.json")])
+        launches = flash_ops.launches
+    finally:
+        Policy.sample_group = sample_group
+        optimizer_loop.grpo_loss_and_grad = loss_and_grad
+        optimizer_loop.CrinnOptimizer._update_policy = update_policy
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    opt = res["optimizer"]
+    hist = opt.history
+
+    check(res["param_count"] == get_config("crinn-policy-100m").param_count(),
+          "the policy is not crinn-policy-100m at full width and depth")
+    check(res["baseline_auc"] > 0, f"graph baseline AUC {res['baseline_auc']}")
+    check(len(groups) == len(hist) == 4 * RL_ITERS,
+          f"{len(groups)} groups sampled, {len(hist)} iterations logged")
+    rollouts = [r for g in groups for r in g]
+    check(all(r.program is not None for r in rollouts),
+          "a rollout did not decode to a program")
+    for h in hist:
+        check(all(np.isfinite(x) and 0.0 <= x < 2.0 for x in h.rewards),
+              f"[{h.module}] reward outside [0, 2): {h.rewards}")
+        # k3 KL = exp(d) - d - 1 >= 0 exactly; in fp32 it lands a few 1e-9
+        # below 0 where d ~ 0 (one inner epoch: rollout = reference policy)
+        check(np.isfinite(h.loss) and np.isfinite(h.kl) and h.kl >= -KL_ROUNDING,
+              f"[{h.module}] loss {h.loss} kl {h.kl}")
+    for m in res["modules"]:
+        check(any(x > 0 for h in hist if h.module == m for x in h.rewards),
+              f"module {m}: no reward > 0")
+    check(launches == 12 * len(groups) and launches > 0,
+          f"flash launches {launches} != 12 x {len(groups)} groups")
+    init = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             opt.policy.cfg, "cuda")
+    moved = {n: float((p.detach() - q.detach()).abs().max())
+             for (n, p), q in zip(opt.policy.model.named_parameters(),
+                                  init.parameters())}
+    check(max(moved.values()) > 0, "the updates left the policy unchanged")
+    first_update = check_first_update(opt, first, loss_and_grad)
+
+    per_module = {}
+    for m in res["modules"]:
+        hs = [h for h in hist if h.module == m]
+        split = {k: sum(getattr(h, k) for h in hs)
+                 for k in ("rollout_s", "reward_s", "update_s")}
+        split["seed_eval_s"] = res["module_seconds"][m] - sum(split.values())
+        per_module[m] = {"seconds": res["module_seconds"][m], **split,
+                         "rewards": [h.rewards for h in hs],
+                         "loss": [h.loss for h in hs], "kl": [h.kl for h in hs]}
+
+    # the reward's sensor at the loop's size and at 20,000 vectors
+    from repro_torch.anns import make_dataset
+    sizes = [glass_curve(opt.ds),
+             glass_curve(make_dataset("sift-128-euclidean", n_base=20_000,
+                                      n_query=100, device="cuda"))]
+
+    # where a rollout's time goes: one traced group at the loop's shapes
+    from repro_torch.core import prompting
+    prompt = prompting.build_prompt(
+        "search", opt.db.sample("search", 4, np.random.default_rng(1)))
+    wall, by_kernel = traced(lambda: opt.policy.sample_group(
+        "search", prompt, 6, opt.generator))
+    flash_us = sum(us for name, us in by_kernel.items() if "flash" in name)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "rl", "param_count": res["param_count"],
+          "baseline_auc": res["baseline_auc"], "skipped": res["skipped_modules"],
+          "per_module": per_module, "peak_device_bytes": peak,
+          "flash_launches": launches, "groups": len(groups),
+          "params_moved": sum(v > 0 for v in moved.values()),
+          "params_total": len(moved), "first_update": first_update,
+          "final_variant": res["final_variant"],
+          "final_reward": res["final_reward"], "glass_curves": sizes,
+          "rollout_trace": {"prompt_len": len(prompt), "wall_s": wall,
+                            "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+                            "flash_device_us": flash_us,
+                            "top_device_us": {n[:80]: us for n, us in top}}})
+    return launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
     kernels = phase_kernels()
     launches = phase_main(n_base=1_000_000, n_query=10_000, n_requests=2048)
     phase_ref20k()
+    launches["flash"] = phase_rl()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     for name, row in kernels.items():
         row["launches"] = launches[name]

@@ -72,6 +72,32 @@ def _refine_block(base, neighbors, node_ids, rand_ids, *, metric: str,
     return cand.gather(1, best)
 
 
+def _prune_rows(C: int, device: torch.device) -> int:
+    """Rows of a (rows, C, C) fp32 cross-distance slice that fit in a
+    quarter of the card's free memory (2 GiB on the CPU)."""
+    if device.type == "cuda":
+        budget = torch.cuda.mem_get_info(device)[0] // 4
+    else:
+        budget = 2 << 30
+    return max(1, budget // (4 * C * C))
+
+
+def _robust_prune(cc: torch.Tensor, nd: torch.Tensor, *, r: int,
+                  alpha: float) -> torch.Tensor:
+    """The kept mask (B, C) of RobustPrune over candidates sorted by their
+    distance ``nd`` (B, C) to the node, with cross distances ``cc``."""
+    B, C = nd.shape
+    kept = torch.zeros((B, C), dtype=torch.bool, device=nd.device)
+    pruned = torch.zeros((B, C), dtype=torch.bool, device=nd.device)
+    count = torch.zeros((B,), dtype=torch.int32, device=nd.device)
+    for j in range(C):
+        active = (~pruned[:, j]) & (count < r) & (nd[:, j] < BIG)
+        kept[:, j] |= active
+        count += active.to(torch.int32)
+        pruned |= (alpha * cc[:, j, :] <= nd) & active[:, None]
+    return kept
+
+
 def _alpha_prune_block(base, neighbors, node_ids, extra, *, metric: str,
                        r: int, alpha: float):
     """Vamana RobustPrune, vectorised over a node block.
@@ -92,18 +118,16 @@ def _alpha_prune_block(base, neighbors, node_ids, extra, *, metric: str,
     cand = cand.gather(1, order)
     vecs = vecs[torch.arange(len(cand), device=cand.device)[:, None], order]
 
-    cc = _cross_dist(vecs, metric)                        # (B, C, C)
-    del vecs
-
+    # Each node prunes on its own: the (B, C, C) cross distances are made
+    # and used a slice of rows at a time, so that C = R + R^2 + trail (up
+    # to 4,553 at degree 64: 170 GB for a 2048-node block in one piece)
+    # fits.
     B, C = cand.shape
-    kept = torch.zeros((B, C), dtype=torch.bool, device=cand.device)
-    pruned = torch.zeros((B, C), dtype=torch.bool, device=cand.device)
-    count = torch.zeros((B,), dtype=torch.int32, device=cand.device)
-    for j in range(C):
-        active = (~pruned[:, j]) & (count < r) & (nd[:, j] < BIG)
-        kept[:, j] |= active
-        count += active.to(torch.int32)
-        pruned |= (alpha * cc[:, j, :] <= nd) & active[:, None]
+    step = _prune_rows(C, cand.device)
+    kept = torch.cat([_robust_prune(_cross_dist(vecs[lo:lo + step], metric),
+                                    nd[lo:lo + step], r=r, alpha=alpha)
+                      for lo in range(0, B, step)], dim=0)
+    del vecs
 
     # take kept (by distance), then backfill with nearest non-kept
     score = torch.where(kept, nd, nd + 1e30)

@@ -11,7 +11,9 @@ Kernels ported so far:
 - ``distance`` -- batched l2 / ip distance matrix (``csrc/distance.cu``).
 - ``topk``     -- k smallest per row, ties to the lowest index
   (``csrc/topk.cu``).
+- ``flash``    -- causal GQA attention forward with optional sliding
+  window and softcap, the policy LM's prefill (``csrc/flash.cu``).
 
 ``qdist`` carries only its quantizer (``ops.quantize_int8``), which the
-reference writes in plain jnp; its kernel and ``flash`` are still to come.
+reference writes in plain jnp; its kernel is still to come.
 """

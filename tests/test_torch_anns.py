@@ -260,6 +260,20 @@ def test_alpha_prune_build_matches_reference_from_same_seed():
     assert overlap >= 0.98
 
 
+def test_alpha_prune_in_row_slices_builds_the_same_graph(monkeypatch):
+    """Each node prunes on its own, so cutting the (B, C, C) cross
+    distances into slices of rows (how a degree-64 build fits in memory)
+    changes nothing."""
+    from repro_torch.anns import construction
+    base = np.random.default_rng(5).standard_normal((300, 24)).astype(np.float32)
+    kw = dict(metric="l2", degree=12, ef_construction=32, rounds=2,
+              alpha=1.2, num_entry_points=2, quantize=False, device=CPU)
+    whole = construction.build_graph(base, **kw)
+    monkeypatch.setattr(construction, "_prune_rows", lambda C, device: 7)
+    sliced = construction.build_graph(base, **kw)
+    assert torch.equal(whole.neighbors, sliced.neighbors)
+
+
 # ---------------------------------------------------------------------------
 # the port's own differential: graph at max effort == brute force
 # ---------------------------------------------------------------------------

@@ -58,3 +58,64 @@ def test_topk_kernel_gives_distinct_ids_past_big(dev):
     d[:, 5], d[:, 9] = 1.0, 2.0
     _, i = ops.topk_smallest(d, 5)
     assert i.tolist() == [[5, 9, 0, 1, 2]] * 4
+
+
+def _qkv(dev, B, S, Hq, Hk, D, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev)
+    k = torch.randn(B, S, Hk, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hk, D, generator=g, device=dev)
+    return (t.to(getattr(torch, dtype)) for t in (q, k, v))
+
+
+# the reference's five shapes (tests/test_kernels.py), ragged S and D, a
+# wider group, and the policy LM's prefill shapes
+@pytest.mark.parametrize("B,S,Hq,Hk,D,win,cap", [
+    (2, 256, 4, 2, 64, 0, 0.0),
+    (1, 256, 8, 8, 128, 0, 50.0),
+    (2, 256, 4, 1, 80, 128, 0.0),
+    (1, 512, 2, 2, 64, 0, 0.0),
+    (1, 128, 16, 4, 128, 64, 30.0),
+    (2, 333, 6, 2, 32, 0, 0.0),
+    (1, 200, 4, 1, 80, 64, 30.0),
+    (6, 35, 12, 12, 64, 0, 0.0),
+    (6, 128, 12, 12, 64, 0, 0.0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(dev, B, S, Hq, Hk, D, win, cap, dtype):
+    from repro_torch.kernels.flash import ops
+    from repro_torch.kernels.flash.ref import flash_ref
+    q, k, v = _qkv(dev, B, S, Hq, Hk, D, dtype)
+    before = ops.launches
+    got = ops.causal_attention(q, k, v, q_scale=D ** -0.5, window=win,
+                               softcap=cap)
+    assert ops.launches == before + 1
+    want = flash_ref(q, k, v, q_scale=D ** -0.5, window=win, softcap=cap)
+    # fp32: the reference's tolerance; bf16: one bf16 ulp of |o| < 4
+    tol = 2e-3 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_inputs_in_place(dev):
+    """q, k, v as views into one fused projection, as the policy's prefill
+    could hand them over: the same answer as contiguous copies."""
+    from repro_torch.kernels.flash import ops
+    qkv = torch.randn(2, 35, 3, 4, 64, device=dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = ops.causal_attention(q, k, v, q_scale=0.125)
+    want = ops.causal_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), q_scale=0.125)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_kernel_is_causal(dev):
+    """Changing future kv must not change past outputs."""
+    from repro_torch.kernels.flash import ops
+    q, k, v = _qkv(dev, 1, 256, 2, 2, 64, "float32")
+    o1 = ops.causal_attention(q, k, v, q_scale=0.125)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 128:] = 0.0
+    v2[:, 128:] = 9.0
+    o2 = ops.causal_attention(q, k2, v2, q_scale=0.125)
+    torch.testing.assert_close(o1[:, :128], o2[:, :128], rtol=1e-5, atol=1e-5)

@@ -25,6 +25,8 @@ def _modules() -> list[str]:
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
     assert "repro_torch.anns.backends.brute_force" in mods
+    assert "repro_torch.launch.train_crinn" in mods
+    assert "repro_torch.kernels.flash.ops" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -85,3 +87,22 @@ def test_serve_main_raises_without_a_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--n-base", "50", "--n-query", "4", "--n-requests", "4"])
+
+
+def test_train_crinn_main_defaults_to_cuda_and_raises_without_a_card(no_card,
+                                                                      tmp_path):
+    from repro_torch.launch import train_crinn
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_crinn.main(["--fast", "--n-base", "50",
+                          "--out", str(tmp_path / "run.json")])
+    assert not (tmp_path / "run.json").exists()
+
+
+def test_policy_model_and_cache_default_to_cuda(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config("crinn-policy-100m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(cfg, 2, 8)
