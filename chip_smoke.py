@@ -8,28 +8,33 @@ non-zero without its last line):
 1. device   -- the card's name and power limit (nvidia-smi); no card = error.
 2. build    -- nvcc builds every kernel of the port, one process per source.
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               (distance within rtol 1e-4 / atol 2e-3, topk ids and values
-               exact, flash within 2e-3 in fp32 and 2e-2 in bf16), then
-               timed at the main path's shapes beside the plain version,
-               one PyTorch library call and the card's bound.
+               (distance and qdist within rtol 1e-4 / atol 2e-3, topk ids
+               and values exact, flash within 2e-3 in fp32 and 2e-2 in
+               bf16; the qdist cell scan at the 1M ivf layout's shapes, its
+               -1 slots exactly BIG), then timed at the main path's shapes
+               beside the plain version, one PyTorch library call and the
+               card's bound.
 4. main     -- the serving path at SIFT1M scale (1,000,000 x 128 base,
                10,000 queries, gt on the card): build, then serve 2,048
                requests through AnnsServer (max_batch 64, k 10, ef 64) for
-               brute_force, graph and quantized_prefilter.  The kernels'
-               launch counters are set to 0 just before and read just after
-               each backend's serving run.
-5. ref20k   -- recall@10 of graph / quantized_prefilter at 20,000 vectors
-               against the JAX package's numbers on the same data, the
-               optimized (alpha-pruned) variant, and the CLI driver.
+               brute_force, graph, quantized_prefilter, ivf (nlist 1,024,
+               nprobe 16, cells capped at 2,048) and sharded (the same in 2
+               shards).  The kernels' launch counters are set to 0 just
+               before and read just after each serving run.
+5. ref20k   -- recall@10 of graph / quantized_prefilter / ivf / sharded
+               (1, 2, 4 shards) at 20,000 vectors against the JAX package's
+               numbers on the same data; sharded at 1 shard returns ivf's
+               ids, ivf at the all-cells probe brute_force's; the optimized
+               (alpha-pruned) variant, and the CLI driver.
 6. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
                the 114M-parameter policy (fp32, full width and depth) samples
-               GRPO groups of 6 programs, each built and swept on the graph
-               engine at 5,000 x 128 and scored by the banded AUC, then
-               takes a GRPO + AdamW step; 2 iterations of each of the four
-               ported modules.  The flash counter is set to 0 just before
-               and read just after.  The first update is held against the
-               same GRPO + AdamW step on the CPU from the same weights and
-               batch.
+               GRPO groups of 6 programs, each built and swept on the engine
+               at 5,000 x 128 and scored by the banded AUC, then takes a
+               GRPO + AdamW step; 2 iterations of each of the five modules,
+               ``backend`` first.  The kernels' counters are set to 0 just
+               before and read just after.  The first update is held
+               against the same GRPO + AdamW step on the CPU from the same
+               weights and batch.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -55,8 +60,13 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
 
 #: recall@10 of the JAX package on the CPU, sift-128 at 20,000 x 256, seed 0
+#: (the ivf family's: IVF_BASELINE and SHARDED_BASELINE at 1, 2, 4 shards)
 REF_RECALL_20K = {"graph": {16: 0.597, 64: 0.795, 256: 0.894},
-                  "quantized_prefilter": {16: 0.598, 64: 0.796, 256: 0.889}}
+                  "quantized_prefilter": {16: 0.598, 64: 0.796, 256: 0.889},
+                  "ivf": {16: 0.94765625, 64: 1.0, 256: 1.0},
+                  "sharded-1": {16: 0.94765625, 64: 1.0, 256: 1.0},
+                  "sharded-2": {16: 0.94765625, 64: 1.0, 256: 1.0},
+                  "sharded-4": {16: 0.94765625, 64: 1.0, 256: 1.0}}
 
 
 def emit(obj) -> None:
@@ -91,7 +101,7 @@ def phase_device() -> str:
 # ---------------------------------------------------------------------------
 # 2. build
 # ---------------------------------------------------------------------------
-KERNELS = ("distance", "topk", "flash")
+KERNELS = ("distance", "topk", "qdist", "flash")
 
 
 def phase_build() -> None:
@@ -253,10 +263,138 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", **out["topk"]})
     del ds_, args
     torch.cuda.empty_cache()
+    out["qdist"] = kernel_qdist(gen)
+    emit({"phase": "kernel", **out["qdist"]})
+    torch.cuda.empty_cache()
     out["flash"] = kernel_flash(gen)
     emit({"phase": "kernel", **out["flash"]})
     torch.cuda.empty_cache()
     return out
+
+
+#: the 1M x 128 ivf layout's scan: 64 queries, 16 probed cells of a
+#: 2,048-wide cell table over 1,024 cells (sizes uniform in [0, 2048])
+SCAN_SHAPE = {"B": 64, "nprobe": 16, "nlist": 1024, "pad": 2048, "d": 128}
+QDIST_TOL = {"rtol": 1e-4, "atol": 2e-3}
+
+
+def cell_table(gen, nlist: int, pad: int):
+    """(cells (nlist, pad) int32 over consecutive rows, -1 padded; the row
+    count; the cell sizes)."""
+    dev = torch.device("cuda")
+    sizes = torch.randint(0, pad + 1, (nlist,), generator=gen, device=dev)
+    offsets = torch.cumsum(sizes, 0) - sizes
+    t = torch.arange(pad, device=dev)
+    cells = torch.where(t[None, :] < sizes[:, None], offsets[:, None] + t, -1)
+    return cells.to(torch.int32).contiguous(), int(sizes.sum()), sizes
+
+
+def kernel_qdist(gen) -> dict:
+    from repro_torch.kernels.qdist import ops as qdist_ops
+    from repro_torch.kernels.qdist.ref import BIG, qdist_cells_ref, qdist_ref
+
+    dev = torch.device("cuda")
+    err = 0.0
+    for nq, nx, d in [(16, 256, 128), (7, 300, 25), (64, 128, 960),
+                      (64, 8192, 128)]:
+        xq, s = qdist_ops.quantize_int8(
+            torch.randn(nx, d, generator=gen, device=dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(nq, d, generator=gen, device=dev).to(dtype)
+            for metric in ("l2", "ip"):
+                got = qdist_ops.quantized_distance(q, xq, s, metric=metric)
+                want = qdist_ref(q, xq, s, metric)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **QDIST_TOL)
+                err = max(err, float((got - want).abs().max()))
+
+    # the cell scan at the 1M layout's shapes, with -1 rows and -1 slots
+    B, nprobe, nlist, pad, d = (SCAN_SHAPE[k] for k in
+                                ("B", "nprobe", "nlist", "pad", "d"))
+    cells, n, sizes = cell_table(gen, nlist, pad)
+    xq, s = qdist_ops.quantize_int8(torch.randn(n, d, generator=gen, device=dev))
+
+    def probes():
+        return torch.randint(0, nlist, (B, nprobe), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    scan_err = 0.0
+    for metric in ("l2", "ip"):
+        q = torch.randn(B, d, generator=gen, device=dev)
+        rows = probes()
+        rows[torch.rand(B, nprobe, generator=gen, device=dev) < 0.2] = -1
+        rows[0] = -1
+        got = qdist_ops.quantized_cell_scan(q, xq, s, cells, rows,
+                                            metric=metric)
+        want = qdist_cells_ref(q, xq, s, cells, rows, metric)
+        torch.cuda.synchronize()
+        dead = want == BIG
+        check(bool(dead.any()) and torch.equal(got[dead], want[dead]),
+              "qdist cell scan: a -1 slot is not exactly BIG")
+        torch.testing.assert_close(got[~dead], want[~dead], **QDIST_TOL)
+        scan_err = max(scan_err, float((got[~dead] - want[~dead]).abs().max()))
+        del got, want, dead
+    torch.cuda.empty_cache()
+
+    # timed: all pairs at (64 x 8192 x 128), 50 distinct int8 tables
+    nq, nx, reps = 64, 8192, 50
+    q = torch.randn(nq, d, generator=gen, device=dev)
+    xs, ss = qdist_ops.quantize_int8(
+        torch.randn(reps * nx, d, generator=gen, device=dev))
+    xfs = xs.float() * ss[:, None]     # dequantized beforehand: the product alone
+    args = [(q, xs[i * nx:(i + 1) * nx], ss[i * nx:(i + 1) * nx])
+            for i in range(reps)]
+    lib_args = [(q, xfs[i * nx:(i + 1) * nx]) for i in range(reps)]
+    kernel = (lambda a, b, c: qdist_ops.quantized_distance(a, b, c))
+    plain = (lambda a, b, c: qdist_ref(a, b, c, "l2"))
+    library = (lambda a, b: torch.matmul(a, b.T))
+    ms, plain_ms = (device_ms(f, args) for f in (kernel, plain))
+    lib_ms = device_ms(library, lib_args)
+    event_ms = {"kernel": time_ms(kernel, args), "plain": time_ms(plain, args),
+                "library": time_ms(library, lib_args)}
+    b_ms, b_by = bound(4.0 * nq * d + (d + 4.0) * nx + 4.0 * nq * nx,
+                       2.0 * nq * nx * d + 2.0 * (nq + nx) * d + 5.0 * nq * nx)
+    del xs, ss, xfs, args, lib_args
+
+    # timed: the cell scan, 50 batches of probes over the 1M-row table
+    rows_list = [probes() for _ in range(reps)]
+    sargs = [(torch.randn(B, d, generator=gen, device=dev), xq, s, cells, r)
+             for r in rows_list]
+    scan = (lambda *a: qdist_ops.quantized_cell_scan(*a))
+    scan_ms = device_ms(scan, sargs)
+    scan_event_ms = time_ms(scan, sargs)
+    # the plain version gathers (B, nprobe * pad, d) fp32 rows: 1 GB a batch
+    scan_plain_ms = device_ms(lambda *a: qdist_cells_ref(*a, "l2"), sargs[:5])
+    # bound, per batch: the rows of its distinct probed cells read once,
+    # with their scales and cell-table rows, the queries, probes and
+    # output; operations: 2 d per live slot (the dot; the norms are minor)
+    read_once, no_reuse, live = [], [], []
+    for r in rows_list:
+        uniq = torch.unique(r.long())
+        live.append(float(sizes[r.long()].sum()))
+        read_once.append(float(sizes[uniq].sum()) * (d + 4) + len(uniq) * pad * 4
+                         + B * d * 4 + B * nprobe * 4 + B * nprobe * pad * 4)
+        no_reuse.append(live[-1] * (d + 4))
+    scan_b_ms, scan_b_by = bound(np.mean(read_once), 2.0 * np.mean(live) * d)
+    cell_scan = {"shape": SCAN_SHAPE, "rows": n, "ms": scan_ms,
+                 "plain_ms": scan_plain_ms, "bound_ms": scan_b_ms,
+                 "bound_by": scan_b_by, "bytes_read_once": np.mean(read_once),
+                 "live_slots": np.mean(live),
+                 "bytes_without_l2_reuse": np.mean(no_reuse),
+                 "bound_without_l2_reuse_ms": 1e3 * np.mean(no_reuse) / HBM_BYTES_S,
+                 "library_ms": None, "per_call_event_ms": scan_event_ms,
+                 "max_abs_err": scan_err}
+    del sargs, rows_list, xq, s, cells
+    return {"name": "qdist", "route": "cuda",
+            "source": "src/repro_torch/csrc/qdist.cu",
+            "replaces": "src/repro/kernels/qdist/qdist.py:47",
+            "max_abs_err": err, "tolerance": "rtol 1e-4, atol 2e-3",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+            "library_call": "torch.matmul(q, xf.T), xf dequantized beforehand "
+                            "(the product alone)",
+            "shape": [nq, nx, d], "per_call_event_ms": event_ms,
+            "cell_scan": cell_scan}
 
 
 #: the reference's five shapes (tests/test_kernels.py), ragged S, D 80, a
@@ -372,24 +510,71 @@ def serve_requests(backend, queries, gt, *, n_requests: int, ef: int,
             f"recall@{k}": recall_at_k(found, gt[order], k)}
 
 
+def top_kernels(by_kernel: dict, n: int) -> dict:
+    """The n kernels with the most device us, names cut to 80 characters
+    (kernels whose cut names coincide are summed, not overwritten)."""
+    cut = {}
+    for name, us in by_kernel.items():
+        cut[name[:80]] = cut.get(name[:80], 0.0) + us
+    return dict(sorted(cut.items(), key=lambda kv: -kv[1])[:n])
+
+
 def busy_share(backend, queries, gt, *, ef: int, n_requests: int = 512) -> dict:
     """A traced serving window: the share of its wall time the card spent
     in kernels or copies, and the five kernels that took most of it."""
     wall, by_kernel = traced(lambda: serve_requests(
         backend, queries, gt, n_requests=n_requests, ef=ef))
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     return {"traced_requests": n_requests, "traced_wall_s": wall,
             "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
-            "top_device_us": {name[:80]: us for name, us in top}}
+            "top_device_us": top_kernels(by_kernel, 5)}
+
+
+#: the ivf cell of serve-1M: nlist ~ sqrt(N) (the usual IVF1024 setting for
+#: SIFT1M), 16 cells probed at ef 64, cells capped at about twice the mean
+IVF_1M = {"nlist": 1024, "nprobe": 16, "kmeans_iters": 8, "max_cell": 2048,
+          "rerank_factor": 2}
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.distance import ops as dist_ops
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.qdist import ops as qdist_ops
+    from repro_torch.kernels.topk import ops as topk_ops
+    return {"distance": dist_ops, "topk": topk_ops, "qdist": qdist_ops,
+            "flash": flash_ops}
+
+
+def zero_counts(counters) -> None:
+    for m in counters.values():
+        m.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {name: m.launches for name, m in counters.items()}
+
+
+def all_cells_recall(backend, ds, n: int = 64) -> dict:
+    """recall@10 against the exact gt of one batch at the all-cells probe
+    (int8 scan over every cell, a shortlist of 320): checks the 1M
+    pipeline end to end, whatever recall the serving efs reach."""
+    from repro_torch.anns import SearchParams
+    from repro_torch.anns.datasets import recall_at_k
+    ef = backend.search_ef_ladder()[-1]
+    res = backend.search(ds.queries[:n], SearchParams(k=10, ef=ef,
+                                                       rerank_factor=32))
+    rec = recall_at_k(res.ids.cpu().numpy(), ds.gt[:n], 10)
+    check(rec >= 0.99, f"ivf at the all-cells probe: recall@10 {rec}")
+    return {"ef": ef, "nprobe": int(res.steps), "queries": n,
+            "recall@10": rec}
 
 
 def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
+    """Serve every backend at SIFT1M scale; returns the kernels' launches
+    of each backend's serving runs, by path."""
     import dataclasses
 
     from repro_torch.anns import make_dataset, registry
-    from repro_torch.anns.engine import GLASS_BASELINE
-    from repro_torch.kernels.distance import ops as dist_ops
-    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.anns.engine import GLASS_BASELINE, VariantConfig
 
     t0 = time.perf_counter()
     ds = make_dataset("sift-128-euclidean", n_base=n_base, n_query=n_query,
@@ -399,9 +584,15 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
     emit({"phase": "main.dataset", "n_base": n_base, "n_query": n_query,
           "dim": int(ds.base.shape[1]), "seconds": time.perf_counter() - t0})
 
+    ivf = VariantConfig(backend="ivf", **IVF_1M)
+    variants = {name: dataclasses.replace(GLASS_BASELINE, backend=name)
+                for name in ("brute_force", "graph", "quantized_prefilter")}
+    variants["ivf"] = ivf
+    variants["sharded"] = dataclasses.replace(ivf, backend="sharded",
+                                              n_shards=2)
+    counters = kernel_counters()
     launches = {}
-    for name in ("brute_force", "graph", "quantized_prefilter"):
-        variant = dataclasses.replace(GLASS_BASELINE, backend=name)
+    for name, variant in variants.items():
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -411,16 +602,23 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         row = {"phase": "main.serve", "backend": name, "build_s": build_s,
+               "variant": variant.describe(),
                "device_bytes": backend.memory_bytes(),
                "build_peak_bytes": torch.cuda.max_memory_allocated()}
-        efs = (64,) if name != "graph" else (16, 64, 256)
+        if name == "ivf":
+            from repro_torch.anns.ivf import ivf_stats
+            row["layout"] = ivf_stats(backend.index)
+            row["all_cells"] = all_cells_recall(backend, ds)
+        elif name == "sharded":
+            row["layout"] = backend.stats()
+        efs = (64,) if name in ("brute_force", "quantized_prefilter") \
+            else (16, 64, 256)
         runs = []
         for ef in efs:
-            dist_ops.launches = topk_ops.launches = 0
+            zero_counts(counters)
             runs.append(serve_requests(backend, ds.queries, ds.gt,
                                        n_requests=n_requests, ef=ef))
-            counts = {"distance": dist_ops.launches, "topk": topk_ops.launches}
-            runs[-1]["launches"] = counts
+            runs[-1]["launches"] = read_counts(counters)
         row["runs"] = runs
         row["trace_ef64"] = busy_share(backend, ds.queries, ds.gt, ef=64)
         emit(row)
@@ -428,16 +626,22 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
         finite = all(np.isfinite(v) for v in served.values()
                      if isinstance(v, float))
         check(finite, f"{name}: non-finite metrics {served}")
+        launches[f"serve.{name}"] = {k: sum(r["launches"][k] for r in runs)
+                                     for k in counters}
         if name == "brute_force":
             check(served["recall@10"] >= 0.999,
                   f"brute_force recall@10 {served['recall@10']} < 0.999")
-            launches = served["launches"]
-            check(launches["distance"] > 0 and launches["topk"] > 0,
-                  f"the main path launched no kernel: {launches}")
-        if name == "graph":
+        if name in ("brute_force", "ivf", "sharded"):
+            needed = ("distance", "topk") + (("qdist",) if name != "brute_force"
+                                             else ())
+            for r in runs:
+                check(all(r["launches"][k] > 0 for k in needed),
+                      f"{name} ef={r['ef']}: the main path launched no "
+                      f"{needed} kernel: {r['launches']}")
+        if len(runs) == 3:
             rec = [r["recall@10"] for r in runs]
             check(rec[1] >= rec[0] - 0.01 and rec[2] >= rec[1] - 0.01,
-                  f"graph recall falls as ef grows: {rec}")
+                  f"{name} recall falls as ef grows: {rec}")
         del backend
         torch.cuda.empty_cache()
     return launches
@@ -451,7 +655,8 @@ def phase_ref20k() -> None:
 
     from repro_torch.anns import SearchParams, make_dataset, registry
     from repro_torch.anns.datasets import recall_at_k
-    from repro_torch.anns.engine import GLASS_BASELINE, VariantConfig
+    from repro_torch.anns.engine import (GLASS_BASELINE, IVF_BASELINE,
+                                         SHARDED_BASELINE, VariantConfig)
     from repro_torch.launch import serve
 
     ds = make_dataset("sift-128-euclidean", n_base=20_000, n_query=256,
@@ -487,10 +692,73 @@ def phase_ref20k() -> None:
                                       n_requests=512, ef=64))
         emit(row)
         del backend
+
+    exact = registry.create("brute_force", metric=ds.metric, device="cuda")
+    exact.build(ds.base)
+    exact_res = exact.search(ds.queries, SearchParams(k=10))
+    ivf_ids = {}
+    for label, variant in [("ivf", IVF_BASELINE)] + [
+            (f"sharded-{n}", dataclasses.replace(SHARDED_BASELINE, n_shards=n))
+            for n in (1, 2, 4)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backend = registry.create(variant.backend, variant, metric=ds.metric,
+                                  seed=0, device="cuda")
+        backend.build(ds.base)
+        torch.cuda.synchronize()
+        row = {"phase": "ref20k", "variant": label,
+               "build_s": time.perf_counter() - t0, "recall@10": {},
+               "reference": REF_RECALL_20K[label]}
+        ids = {}
+        for ef in (16, 64, 256):
+            ids[ef] = backend.search(ds.queries, SearchParams(k=10, ef=ef)).ids
+            row["recall@10"][ef] = recall_at_k(ids[ef].cpu().numpy(), ds.gt, 10)
+        for ef, r in REF_RECALL_20K[label].items():
+            check(abs(row["recall@10"][ef] - r) <= 0.02,
+                  f"{label} ef={ef}: recall {row['recall@10'][ef]} vs "
+                  f"reference {r}")
+        if label == "ivf":
+            ivf_ids = ids
+            row.update(all_cells_vs_brute_force(backend, ds, exact_res))
+        if label == "sharded-1":
+            same = all(torch.equal(ids[ef], ivf_ids[ef]) for ef in ids)
+            row["ids_equal_ivf"] = same
+            check(same, "sharded at 1 shard does not return ivf's ids")
+        emit(row)
+        del backend
+    del exact
+
     rec = serve.main(["--n-base", "20000", "--n-query", "256",
                       "--n-requests", "512", "--backend", "brute_force"])
     check(rec >= 0.999, f"serve CLI brute_force recall {rec}")
     emit({"phase": "ref20k.cli", "backend": "brute_force", "recall@10": rec})
+    for argv in (["--backend", "ivf", "--nlist", "128"],
+                 ["--backend", "sharded", "--nlist", "128", "--n-shards", "2"]):
+        rec = serve.main(["--n-base", "20000", "--n-query", "256",
+                          "--n-requests", "512", *argv])
+        check(np.isfinite(rec) and rec > 0.5, f"serve CLI {argv}: recall {rec}")
+        emit({"phase": "ref20k.cli", "argv": argv, "recall@10": rec})
+
+
+def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
+    """ivf at the all-cells probe (int8 scan, a shortlist of 80) against the
+    exact anchor: a row may differ only where the two lists are equally
+    near (a rounding tie at the cut, as brute_force's own 0.999)."""
+    from repro_torch.anns import SearchParams
+    ef = backend.search_ef_ladder()[-1]
+    res = backend.search(ds.queries, SearchParams(k=10, ef=ef,
+                                                  rerank_factor=8))
+    got = np.sort(res.ids.cpu().numpy(), 1)
+    want = np.sort(exact_res.ids.cpu().numpy(), 1)
+    differ = np.flatnonzero((got != want).any(axis=1))
+    for r in differ:
+        np.testing.assert_allclose(res.dists[r].cpu().numpy(),
+                                   exact_res.dists[r].cpu().numpy(),
+                                   rtol=1e-4, atol=2e-3,
+                                   err_msg=f"ivf all-cells row {r} is no tie")
+    share = 1.0 - len(differ) / len(got)
+    return {"all_cells_ef": ef, "all_cells_rows_equal_brute_force": share,
+            "all_cells_rows_at_a_tie": int(len(differ))}
 
 
 # ---------------------------------------------------------------------------
@@ -519,16 +787,29 @@ def glass_curve(ds) -> dict:
             "qps": qps, "banded_auc": banded_auc(np.array(rec), np.array(qps))[0]}
 
 
+def _cpu_copy(obj):
+    """``obj`` (nested dicts of tensors and numbers) with every tensor
+    copied to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _cpu_copy(v) for k, v in obj.items()}
+    return obj
+
+
 def check_first_update(opt, first: dict, loss_and_grad) -> dict:
-    """The card's first GRPO + AdamW step against the same step on the CPU
-    from the same weights and batch: the loss within 1e-5 and the new
-    weights within 1e-6 on at least 99.9% of elements and within 2.5 lr
-    on all (a first step moves a weight by lr g / (|g| + eps), so a
-    near-zero gradient whose sign differs moves it by up to 2 lr)."""
+    """The card's first GRPO + AdamW step whose group has non-zero
+    advantages, against the same step on the CPU from the same weights,
+    optimizer state and batch: the loss within 1e-5 and the new weights
+    within 1e-6 on at least 99.9% of elements and within 2.5 lr on all (a
+    near-zero gradient whose sign differs moves a weight by up to about
+    2 lr).  A group whose rewards are all equal has zero advantages: its
+    gradient is rounding noise, which AdamW scales to steps of ~lr on
+    either side, so it is no comparison."""
     from repro_torch.models import model
-    from repro_torch.optim.adamw import adamw_init, adamw_update
-    check(first.get("step") == 0 and "batch" in first,
-          "the first update was not recorded")
+    from repro_torch.optim.adamw import adamw_update
+    check("batch" in first and "after" in first,
+          "no update with non-zero advantages was recorded")
     t0 = time.perf_counter()
     cpu = model.DecoderLM(opt.policy.cfg, device="cpu")
     params = dict(cpu.named_parameters())
@@ -537,14 +818,14 @@ def check_first_update(opt, first: dict, loss_and_grad) -> dict:
             p.copy_(first["before"][n])
     (loss, _), grads = loss_and_grad(cpu, first["batch"], opt.policy.rt,
                                      opt.gcfg)
-    adamw_update(params, grads, adamw_init(params, opt.opt_cfg), opt.opt_cfg)
+    adamw_update(params, grads, first["state"], opt.opt_cfg)
     diff = torch.cat([(first["after"][n] - p.detach()).abs().flatten()
                       for n, p in params.items()])
     lr = opt.opt_cfg.lr
     out = {"loss_card": first["loss"], "loss_cpu": float(loss),
            "max_abs_diff": float(diff.max()),
            "share_within_1e-6": float((diff <= 1e-6).double().mean()),
-           "elements": diff.numel(), "lr": lr,
+           "elements": diff.numel(), "lr": lr, "step": first["step"],
            "batch_shape": list(first["batch"]["tokens"].shape),
            "cpu_seconds": time.perf_counter() - t0}
     check(abs(out["loss_card"] - out["loss_cpu"]) <= 1e-5
@@ -554,12 +835,12 @@ def check_first_update(opt, first: dict, loss_and_grad) -> dict:
     return out
 
 
-def phase_rl() -> int:
-    """``train_crinn.main`` on the card; returns the flash launches of the
-    run.  Rollouts are recorded by wrapping ``Policy.sample_group``."""
+def phase_rl() -> dict:
+    """``train_crinn.main`` on the card; returns the kernels' launches of
+    the run.  Rollouts are recorded by wrapping ``Policy.sample_group``."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import Policy
-    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.core.variant_space import BACKEND_CHOICES, MODULE_ORDER
     from repro_torch.launch import train_crinn
     from repro_torch.models import model
 
@@ -577,16 +858,20 @@ def phase_rl() -> int:
         return out
 
     def recording_grad(model_, batch, *args):
-        first.setdefault("batch", {k: v.cpu() for k, v in batch.items()})
+        if first.get("armed"):
+            first["batch"] = {k: v.cpu() for k, v in batch.items()}
         return loss_and_grad(model_, batch, *args)
 
     def recording_update(self, rollouts, rewards):
-        if "after" in first:
+        if "after" in first or np.ptp(rewards) == 0:
             return update_policy(self, rollouts, rewards)
+        first["armed"] = True
         first["step"] = self.opt_state["step"]
+        first["state"] = _cpu_copy(self.opt_state)
         first["before"] = {n: p.detach().cpu().clone()
                            for n, p in self.params.items()}
         out = update_policy(self, rollouts, rewards)
+        first["armed"] = False
         first["after"] = {n: p.detach().cpu() for n, p in self.params.items()}
         first["loss"] = out[0]
         return out
@@ -595,11 +880,12 @@ def phase_rl() -> int:
     optimizer_loop.grpo_loss_and_grad = recording_grad
     optimizer_loop.CrinnOptimizer._update_policy = recording_update
     torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
     try:
-        flash_ops.launches = 0
+        zero_counts(counters)
         res = train_crinn.main(["--iters", str(RL_ITERS), "--out",
                                 os.path.join(ROOT, "build", "crinn_run.json")])
-        launches = flash_ops.launches
+        launches = read_counts(counters)
     finally:
         Policy.sample_group = sample_group
         optimizer_loop.grpo_loss_and_grad = loss_and_grad
@@ -612,7 +898,9 @@ def phase_rl() -> int:
     check(res["param_count"] == get_config("crinn-policy-100m").param_count(),
           "the policy is not crinn-policy-100m at full width and depth")
     check(res["baseline_auc"] > 0, f"graph baseline AUC {res['baseline_auc']}")
-    check(len(groups) == len(hist) == 4 * RL_ITERS,
+    check(res["modules"] == list(MODULE_ORDER) and res["skipped_modules"] == [],
+          f"modules run {res['modules']}, skipped {res['skipped_modules']}")
+    check(len(groups) == len(hist) == len(MODULE_ORDER) * RL_ITERS,
           f"{len(groups)} groups sampled, {len(hist)} iterations logged")
     rollouts = [r for g in groups for r in g]
     check(all(r.program is not None for r in rollouts),
@@ -624,11 +912,31 @@ def phase_rl() -> int:
         # below 0 where d ~ 0 (one inner epoch: rollout = reference policy)
         check(np.isfinite(h.loss) and np.isfinite(h.kl) and h.kl >= -KL_ROUNDING,
               f"[{h.module}] loss {h.loss} kl {h.kl}")
+    # the backend module's candidates are each family's baseline with the
+    # running knobs: a family whose baseline curve never enters the
+    # reward's recall band (ivf, sharded and brute_force at 5,000 vectors
+    # sit above 0.95) has baseline AUC 0 and scores every candidate 0, so
+    # that module is held per rollout; the others need some reward > 0
+    backend_rollouts = [
+        (ro.program.knobs()["backend"], x)
+        for g, h in zip(groups, hist) if h.module == "backend"
+        for ro, x in zip(g, h.rewards)]
+    for family, x in backend_rollouts:
+        check(x > 0 or opt.baselines.get(family) == 0.0,
+              f"backend module: a {family} rollout scored {x} though its "
+              f"family's baseline AUC is {opt.baselines.get(family)}")
     for m in res["modules"]:
+        if m == "backend":
+            continue
         check(any(x > 0 for h in hist if h.module == m for x in h.rewards),
               f"module {m}: no reward > 0")
-    check(launches == 12 * len(groups) and launches > 0,
-          f"flash launches {launches} != 12 x {len(groups)} groups")
+    check(launches["flash"] == 12 * len(groups) and launches["flash"] > 0,
+          f"flash launches {launches['flash']} != 12 x {len(groups)} groups")
+    families = [f for f in BACKEND_CHOICES if opt.baselines.has(f)]
+    if {"ivf", "sharded"} & set(families):
+        check(launches["qdist"] > 0,
+              f"ivf-family variants were evaluated ({families}) but qdist "
+              f"launched {launches['qdist']} times")
     init = model.init_params(torch.Generator(device="cuda").manual_seed(0),
                              opt.policy.cfg, "cuda")
     moved = {n: float((p.detach() - q.detach()).abs().max())
@@ -660,11 +968,17 @@ def phase_rl() -> int:
     wall, by_kernel = traced(lambda: opt.policy.sample_group(
         "search", prompt, 6, opt.generator))
     flash_us = sum(us for name, us in by_kernel.items() if "flash" in name)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+
     emit({"phase": "rl", "param_count": res["param_count"],
-          "baseline_auc": res["baseline_auc"], "skipped": res["skipped_modules"],
+          "baseline_auc": res["baseline_auc"], "modules": res["modules"],
+          "skipped_modules": res["skipped_modules"],
+          "backend_chosen": opt.current.backend,
+          "backend_rollouts": backend_rollouts,
+          "families_evaluated": families,
+          "family_baseline_auc": {f: opt.baselines.get(f) for f in families},
+          "launches": launches,
           "per_module": per_module, "peak_device_bytes": peak,
-          "flash_launches": launches, "groups": len(groups),
+          "groups": len(groups),
           "params_moved": sum(v > 0 for v in moved.values()),
           "params_total": len(moved), "first_update": first_update,
           "final_variant": res["final_variant"],
@@ -672,7 +986,7 @@ def phase_rl() -> int:
           "rollout_trace": {"prompt_len": len(prompt), "wall_s": wall,
                             "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
                             "flash_device_us": flash_us,
-                            "top_device_us": {n[:80]: us for n, us in top}}})
+                            "top_device_us": top_kernels(by_kernel, 6)}})
     return launches
 
 
@@ -682,10 +996,13 @@ def main() -> None:
     kernels = phase_kernels()
     launches = phase_main(n_base=1_000_000, n_query=10_000, n_requests=2048)
     phase_ref20k()
-    launches["flash"] = phase_rl()
+    launches["rl"] = phase_rl()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     for name, row in kernels.items():
-        row["launches"] = launches[name]
+        by_path = {path: n[name] for path, n in launches.items() if n[name]}
+        check(by_path, f"{name} was launched on no path")
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@
   Ported built-ins: ``"graph"`` (flat fixed-degree graph + lockstep
   batched beam search), ``"brute_force"`` (exact search through the CUDA
   distance / top-k kernels — the recall=1.0 anchor) and
-  ``"quantized_prefilter"`` (int8 prefilter + fp32 rerank).
+  ``"quantized_prefilter"`` (int8 prefilter + fp32 rerank), ``"ivf"``
+  (k-means cells scanned in int8 through the CUDA ``qdist`` kernel) and
+  ``"sharded"`` (the ivf layout in whole-cell shards on one device).
 - :class:`repro_torch.anns.api.SearchParams` / ``SearchResult`` — the
   typed request/response structs.
 - :class:`repro_torch.anns.engine.Engine` — thin compatibility facade.

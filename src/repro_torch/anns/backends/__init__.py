@@ -12,6 +12,8 @@ _EXPORTS = {
     "GraphBeamBackend": "repro_torch.anns.backends.graph_beam",
     "BruteForceBackend": "repro_torch.anns.backends.brute_force",
     "QuantizedPrefilterBackend": "repro_torch.anns.backends.quantized",
+    "IvfBackend": "repro_torch.anns.backends.ivf",
+    "ShardedBackend": "repro_torch.anns.backends.sharded",
 }
 
 __all__ = sorted(_EXPORTS)

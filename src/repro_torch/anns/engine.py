@@ -43,9 +43,7 @@ class VariantConfig:
     # -- refinement module (§6.3) ----------------------------------------
     quantized_prefilter: bool = False
     rerank_factor: int = 2
-    # -- ivf module (partition family; inert for graph backends; the
-    #    ivf, sharded and streaming fields are kept so a variant
-    #    describes itself as in the reference) ---------------------------
+    # -- ivf module (partition family; inert for graph backends) ---------
     nlist: int = 64                  # k-means cells
     nprobe: int = 8                  # cells probed at the default ef=64
     kmeans_iters: int = 8            # coarse-quantizer training iterations
@@ -53,7 +51,8 @@ class VariantConfig:
                                      # (oversized cells split at build)
     # -- sharded backend: device-mesh scale-out knob ---------------------
     n_shards: int = 1                # cell-granular shards of the layout
-    # -- streaming backends (not ported yet) ----------------------------
+    # -- streaming backends (not ported yet; kept so a variant describes
+    #    itself as in the reference) -------------------------------------
     tail_cap: int = 256              # delta-tail capacity (per shard for
                                      # stream_sharded); 0 = default
 
@@ -84,16 +83,28 @@ GLASS_BASELINE = VariantConfig(
     alpha=1.0, num_entry_points=1, adaptive_ef_coef=0.0, gather_width=1,
     patience=0, quantized_prefilter=False, rerank_factor=1)
 
+# the partition-family analogue of GLASS: untuned FAISS-style IVF defaults
+# (sqrt(N)-ish cells at bench scale, modest probe budget, plain rerank).
+IVF_BASELINE = VariantConfig(
+    backend="ivf", nlist=64, nprobe=8, kmeans_iters=8, rerank_factor=2)
+
+# the sharded family's reference point: the same untuned IVF knobs split
+# over two cell shards with the balanced-assignment cap off.
+SHARDED_BASELINE = dataclasses.replace(IVF_BASELINE, backend="sharded",
+                                       n_shards=2)
+
 # One canonical baseline variant per ported backend family: the reference
 # point each family's reward is normalised against.  Only registered
-# families may appear (``__post_init__`` rejects the rest); the ivf,
-# sharded and streaming baselines come with their slices.
+# families may appear (``__post_init__`` rejects the rest); the streaming
+# baselines come with their slice.
 FAMILY_BASELINE_VARIANTS = {
     "graph": GLASS_BASELINE,
     "brute_force": dataclasses.replace(GLASS_BASELINE,
                                        backend="brute_force"),
     "quantized_prefilter": dataclasses.replace(
         GLASS_BASELINE, backend="quantized_prefilter", rerank_factor=2),
+    "ivf": IVF_BASELINE,
+    "sharded": SHARDED_BASELINE,
 }
 
 

@@ -11,9 +11,12 @@ Built-ins ported so far:
                               ``topk`` CUDA kernels; the recall=1.0 anchor
                               of every QPS-recall curve.
 - ``"quantized_prefilter"`` — int8 graph prefilter + fp32 rerank.
+- ``"ivf"``                 — k-means cells, int8 cell scans through the
+                              ``qdist`` CUDA kernel, fp32 rerank.
+- ``"sharded"``             — the ivf layout sliced into whole-cell shards,
+                              unrolled on one device.
 
-The reference's ``ivf``, ``sharded`` and streaming families are not
-ported yet.
+The reference's streaming families are not ported yet.
 
 Adding a backend::
 
@@ -45,6 +48,8 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "graph": "repro_torch.anns.backends.graph_beam",
     "brute_force": "repro_torch.anns.backends.brute_force",
     "quantized_prefilter": "repro_torch.anns.backends.quantized",
+    "ivf": "repro_torch.anns.backends.ivf",
+    "sharded": "repro_torch.anns.backends.sharded",
 }
 
 

@@ -1,9 +1,10 @@
 """Carry a built index across from the reference package.
 
-The reference's ``to_state_dict()`` returns plain numpy leaves (state
-format 2, ``attr/<col>`` leaves for attribute columns), so the port can
-search the very graph the reference built: same neighbors, entry points
-and int8 codes.
+The reference's ``to_state_dict()`` returns plain numpy leaves, so the
+port can search the very index the reference built: the same graph
+(neighbors, entry points, int8 codes; state format 2) or the same IVF
+cells (ivf format 2; sharded format 3, whose v1 and v2 snapshots load
+too), with ``attr/<col>`` leaves for attribute columns.
 """
 from __future__ import annotations
 

@@ -16,11 +16,6 @@ For each module:
 Construction-variant indexes are cached by their construction knobs so RL
 revisits don't pay the rebuild.  Every iteration records how its seconds
 split into rollout (prefill + decode), reward evaluation and update.
-
-The ``backend`` module can choose families this package has not ported
-(``ivf``, ``sharded``): :meth:`CrinnOptimizer.run` and
-``run_module("backend")`` refuse to start until they are registered,
-rather than score them as 0.
 """
 from __future__ import annotations
 
@@ -40,8 +35,7 @@ from repro_torch.core.exemplar_db import ExemplarDB
 from repro_torch.core.grpo import GRPOConfig, group_advantages, grpo_loss_and_grad
 from repro_torch.core.policy import Policy, Rollout
 from repro_torch.core.reward import FamilyBaselines, RewardResult, banded_auc
-from repro_torch.core.variant_space import (BACKEND_CHOICES, MODULE_ORDER,
-                                            program_from_variant)
+from repro_torch.core.variant_space import MODULE_ORDER, program_from_variant
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 
@@ -69,11 +63,6 @@ class IterationLog:
     rollout_s: float = 0.0       # prefill + decode of the group
     reward_s: float = 0.0        # builds + QPS/recall sweeps of its programs
     update_s: float = 0.0        # GRPO forward/backward + AdamW
-
-
-def unregistered_backends() -> tuple:
-    """Backend choices of the grammar that this package cannot build."""
-    return tuple(b for b in BACKEND_CHOICES if b not in registry.available())
 
 
 class CrinnOptimizer:
@@ -112,7 +101,15 @@ class CrinnOptimizer:
     # Engine evaluation
     # ------------------------------------------------------------------
     def _construction_key(self, v: VariantConfig) -> tuple:
-        # only the knobs the family's build consumes belong in the key
+        # the backend family is part of the build identity, and only the
+        # knobs that family's build consumes belong in the key (sweeping an
+        # inert knob must not rebuild identical state)
+        if v.backend == "ivf":
+            return (v.backend, v.nlist, v.kmeans_iters, v.max_cell)
+        if v.backend == "sharded":
+            # n_shards re-slices the built layout, so it is build identity
+            return (v.backend, v.nlist, v.kmeans_iters, v.max_cell,
+                    v.n_shards)
         if v.backend == "brute_force":
             return (v.backend,)
         return (v.backend, v.degree, v.ef_construction, v.nn_descent_rounds,
@@ -192,16 +189,7 @@ class CrinnOptimizer:
     # ------------------------------------------------------------------
     # Module loop
     # ------------------------------------------------------------------
-    def _require_ported(self, modules) -> None:
-        missing = unregistered_backends()
-        if "backend" in modules and missing:
-            raise NotImplementedError(
-                f"the 'backend' module can choose {list(missing)}, which "
-                f"this package does not register yet (ROADMAP.md queue "
-                f"items 2 and 6); run the other modules with run_module()")
-
     def run_module(self, module: str, verbose: bool = True) -> VariantConfig:
-        self._require_ported((module,))
         seed_prog = program_from_variant(module, self.current)
         seed_r = self.evaluate(self.current)
         self.db.add(seed_prog, seed_r.reward)
@@ -245,7 +233,6 @@ class CrinnOptimizer:
         return self.current
 
     def run(self, verbose: bool = True) -> VariantConfig:
-        self._require_ported(MODULE_ORDER)
         for module in MODULE_ORDER:
             t0 = time.time()
             self.run_module(module, verbose=verbose)

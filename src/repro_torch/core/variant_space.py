@@ -25,10 +25,7 @@ from repro_torch.anns.engine import VariantConfig
 # Backend families of the reference's registry.  Promoted into MODULES as
 # the "backend" module: the policy picks the algorithm family itself, with
 # per-family reward baselines (repro_torch.core.reward.FamilyBaselines)
-# keeping banded-AUC comparable across families.  All five stay here so
-# the vocab matches the reference's, though "ivf" and "sharded" are not
-# registered in this package yet (ROADMAP.md queue items 2 and 6): the
-# optimizer refuses to run the "backend" module until they are.
+# keeping banded-AUC comparable across families.
 BACKEND_CHOICES = ("graph", "brute_force", "quantized_prefilter", "ivf",
                    "sharded")
 

@@ -4,11 +4,13 @@ and serve batched queries through :class:`AnnsServer`.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --dataset sift-128-euclidean --n-base 1000000 --n-query 10000 \
         --n-requests 2048 --ef 64 --backend brute_force
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend sharded \
+        --n-shards 2 --nlist 1024 --n-base 1000000 --n-query 10000
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The printed
 ``served … QPS`` and ``recall@k=`` lines match ``repro.launch.serve``.
-The reference's tuning, async, streaming, checkpoint and sharding flags
-come with their slices.
+``--n-shards`` unrolls the shards on the one device.  The reference's
+tuning, async, streaming and checkpoint flags come with their slices.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--backend", default="graph",
                     help="ANNS backend name (see repro_torch.anns.registry)")
+    ap.add_argument("--n-shards", type=int, default=None,
+                    help="cell-granular shard count (sharded backend), "
+                         "unrolled on the one device")
+    ap.add_argument("--nlist", type=int, default=None,
+                    help="k-means cell count (ivf-family backends)")
     ap.add_argument("--optimized", action="store_true",
                     help="serve the CRINN-optimized variant instead of GLASS")
     ap.add_argument("--filter", default=None, metavar="EXPR",
@@ -65,6 +72,10 @@ def main(argv=None):
                                 gather_width=2, patience=4,
                                 adaptive_ef_coef=14.5)
     variant = dataclasses.replace(variant, backend=args.backend)
+    if args.n_shards:
+        variant = dataclasses.replace(variant, n_shards=args.n_shards)
+    if args.nlist:
+        variant = dataclasses.replace(variant, nlist=args.nlist)
     print(f"building index ({variant.describe()}) on {device} ...")
     t0 = time.time()
     target = registry.create(args.backend, variant, metric=ds.metric,

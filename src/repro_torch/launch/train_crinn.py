@@ -7,9 +7,8 @@ counterpart of ``examples/train_crinn.py``).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The policy is
 ``crinn-policy-100m`` in fp32 (``--fast`` shrinks it), initialised from
-``torch.Generator`` seed 0.  The modules run in the reference's order
-except ``backend``, whose choices include families this package does not
-register yet (``ivf``, ``sharded``): it is skipped, and the driver says so.
+``torch.Generator`` seed 0.  The five modules run in the reference's
+order (``MODULE_ORDER``), ``backend`` first.
 """
 from __future__ import annotations
 
@@ -39,7 +38,6 @@ def main(argv=None) -> dict:
     from repro_torch.anns import make_dataset
     from repro_torch.configs import get_config
     from repro_torch.core import CrinnOptimizer, LoopConfig, Policy
-    from repro_torch.core.optimizer_loop import unregistered_backends
     from repro_torch.core.variant_space import MODULE_ORDER
     from repro_torch.device import resolve_device
     from repro_torch.models import Runtime, model
@@ -71,11 +69,7 @@ def main(argv=None) -> dict:
                       bench_repeats=1 if args.fast else 2)
     opt = CrinnOptimizer(policy, ds, loop)
 
-    skipped = unregistered_backends()
-    modules = [m for m in MODULE_ORDER if not (m == "backend" and skipped)]
-    if skipped:
-        print(f"skipping module 'backend': its choices {list(skipped)} are "
-              f"not ported yet (ROADMAP.md queue items 2 and 6)")
+    modules = list(MODULE_ORDER)
     t0 = time.time()
     seconds = {}
     for module in modules:
@@ -96,7 +90,7 @@ def main(argv=None) -> dict:
     out = {
         "dataset": args.dataset, "n_base": n_base, "device": str(device),
         "param_count": cfg.param_count(), "modules": modules,
-        "skipped_modules": ["backend"] if skipped else [],
+        "skipped_modules": [],
         "module_seconds": seconds, "baseline_auc": opt.baseline_auc,
         "final_variant": final.describe(), "final_reward": res.reward,
         "final_rel_auc": res.rel,

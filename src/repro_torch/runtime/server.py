@@ -58,7 +58,7 @@ def index_size(target) -> int | None:
         return None
     if isinstance(idx, torch.Tensor):           # raw base matrix
         return int(idx.shape[0])
-    return int(idx.n)                           # GraphIndex
+    return int(idx.n)                           # GraphIndex, ivf, sharded
 
 
 def index_dim(target) -> int | None:
@@ -70,7 +70,8 @@ def index_dim(target) -> int | None:
         return None
     if isinstance(idx, torch.Tensor):           # raw base matrix
         return int(idx.shape[1])
-    return int(idx.base.shape[1])               # GraphIndex
+    return int(idx.centroids.shape[1] if hasattr(idx, "centroids")
+               else idx.base.shape[1])          # ivf / sharded, graph
 
 
 def validate_query(query, dim: int | None = None) -> np.ndarray:

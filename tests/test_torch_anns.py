@@ -299,7 +299,8 @@ def _max_effort_ids(backend, ds, predicate) -> np.ndarray:
 
 
 @pytest.mark.parametrize("sel", (None,) + SELECTIVITIES)
-@pytest.mark.parametrize("name", ["graph", "quantized_prefilter"])
+@pytest.mark.parametrize("name", ["graph", "quantized_prefilter", "ivf",
+                                  "sharded"])
 def test_max_effort_graph_matches_port_brute_force(port_stack, name, sel):
     ds, backends = port_stack
     pred = None if sel is None else selectivity_filter(ds, sel)

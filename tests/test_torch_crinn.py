@@ -167,7 +167,8 @@ def _fake_evaluate(cls):
     """A deterministic reward of the variant's knobs (no engine run)."""
     def evaluate(v):
         r = (0.6 + 0.1 * v.gather_width + 0.03 * v.patience
-             + 0.2 * v.quantized_prefilter + 0.05 * v.rerank_factor)
+             + 0.2 * v.quantized_prefilter + 0.05 * v.rerank_factor
+             + 0.07 * vs.BACKEND_CHOICES.index(v.backend))
         return cls(auc=r, rel=r, reward=r, n_band_points=3, valid=True)
     return evaluate
 
@@ -211,19 +212,37 @@ def test_run_module_matches_the_reference(loop_pair, module):
                 for e in jopt.db.entries.get(m, [])]
 
 
-def test_run_and_backend_module_refuse_before_any_work(loop_pair):
-    _, opt = loop_pair
-    calls = []
-    opt_evaluate = opt.evaluate
-    opt.evaluate = lambda v: calls.append(v) or opt_evaluate(v)
-    n0, db0 = len(opt.history), dict(opt.db.entries)
-    try:
-        for call in (opt.run, lambda: opt.run_module("backend")):
-            with pytest.raises(NotImplementedError, match="ivf.*sharded"):
-                call()
-    finally:
-        opt.evaluate = opt_evaluate
-    assert calls == [] and len(opt.history) == n0 and opt.db.entries == db0
+def test_run_module_backend_matches_the_reference(loop_pair):
+    """The ``backend`` module runs (every family it can choose is
+    registered) and takes the reference's decisions."""
+    jopt, opt = loop_pair
+    n0 = len(opt.history)
+    jv = jopt.run_module("backend", verbose=False)
+    v = opt.run_module("backend", verbose=False)
+    assert dataclasses.asdict(v) == dataclasses.asdict(jv)
+    assert v.backend in vs.BACKEND_CHOICES
+    got, want = opt.history[n0:], jopt.history[n0:]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.rewards == w.rewards and g.best_so_far == w.best_so_far
+    assert [(e.program.choices, e.score, e.step)
+            for e in opt.db.entries.get("backend", [])] \
+        == [(e.program.choices, e.score, e.step)
+            for e in jopt.db.entries.get("backend", [])]
+
+
+def test_construction_key_matches_the_reference(loop_pair):
+    """The build cache keys every family by the knobs its build consumes,
+    as the reference does (an inert knob never forces a rebuild)."""
+    jopt, opt = loop_pair
+    knobs = [{}, {"nlist": 128, "kmeans_iters": 4}, {"n_shards": 4},
+             {"max_cell": 512, "degree": 48, "alpha": 1.2},
+             {"rerank_factor": 8, "nprobe": 32, "gather_width": 4}]
+    for family in vs.BACKEND_CHOICES:
+        for kw in knobs:
+            v = dataclasses.replace(GLASS_BASELINE, backend=family, **kw)
+            jv = dataclasses.replace(JAX_GLASS, backend=family, **kw)
+            assert opt._construction_key(v) == jopt._construction_key(jv)
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +274,10 @@ def test_crinn_loop_runs_on_the_cpu():
     assert JAX_GLASS.describe() == GLASS_BASELINE.describe()
 
 
-def test_train_crinn_driver_skips_only_the_backend_module(tmp_path, capsys,
-                                                        monkeypatch):
-    """The driver runs every module but ``backend`` in the reference's
-    order and says why it skipped that one.  The engine work is replaced by
-    the deterministic reward (a real graph_construction pass builds
+def test_train_crinn_driver_runs_all_five_modules(tmp_path, monkeypatch):
+    """The driver runs every module in the reference's order, ``backend``
+    first, and skips none.  The engine work is replaced by the
+    deterministic reward (a real graph_construction pass builds
     alpha-pruned degree-64 graphs, too heavy for a unit test here)."""
     import json
 
@@ -268,11 +286,10 @@ def test_train_crinn_driver_skips_only_the_backend_module(tmp_path, capsys,
                         lambda self, v: _fake_evaluate(RewardResult)(v))
     out = train_crinn.main(["--fast", "--device", "cpu", "--n-base", "300",
                             "--out", str(tmp_path / "run.json")])
-    text = capsys.readouterr().out
-    assert "skipping module 'backend'" in text and "'ivf', 'sharded'" in text
-    assert out["modules"] == ["graph_construction", "search", "ivf",
-                              "refinement"]
-    assert out["skipped_modules"] == ["backend"]
+    assert out["modules"] == list(vs.MODULE_ORDER)
+    assert out["modules"][0] == "backend"
+    assert out["skipped_modules"] == []
     assert [h["module"] for h in out["history"]] == out["modules"]
     saved = json.loads((tmp_path / "run.json").read_text())
     assert saved["modules"] == out["modules"] and saved["param_count"] > 0
+    assert saved["skipped_modules"] == []

@@ -119,3 +119,56 @@ def test_flash_kernel_is_causal(dev):
     v2[:, 128:] = 9.0
     o2 = ops.causal_attention(q, k2, v2, q_scale=0.125)
     torch.testing.assert_close(o1[:, :128], o2[:, :128], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nq,nx,d", [(16, 256, 128), (7, 300, 25),
+                                     (64, 128, 960), (64, 8192, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_qdist_kernel_matches_plain(dev, nq, nx, d, dtype, metric):
+    from repro_torch.kernels.qdist import ops
+    from repro_torch.kernels.qdist.ref import qdist_ref
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(nq, d, generator=g, device=dev).to(getattr(torch, dtype))
+    xq, s = ops.quantize_int8(torch.randn(nx, d, generator=g, device=dev))
+    before = ops.launches
+    got = ops.quantized_distance(q, xq, s, metric=metric)
+    assert ops.launches == before + 1
+    torch.testing.assert_close(got, qdist_ref(q, xq, s, metric), rtol=1e-4,
+                               atol=2e-3)
+
+
+def _cell_table(g, dev, nlist, pad):
+    """A cell table of ragged cells (-1 padded) over consecutive rows."""
+    sizes = torch.randint(0, pad + 1, (nlist,), generator=g, device=dev)
+    offsets = torch.cumsum(sizes, 0) - sizes
+    t = torch.arange(pad, device=dev)
+    cells = torch.where(t[None, :] < sizes[:, None], offsets[:, None] + t, -1)
+    return cells.to(torch.int32).contiguous(), int(sizes.sum())
+
+
+# the 1M x 128 ivf layout's shapes (64 queries, 16 probed cells of a
+# 2,048-wide table over 1,024 cells), ragged d and a small table
+@pytest.mark.parametrize("B,nprobe,nlist,pad,d", [(64, 16, 1024, 2048, 128),
+                                                  (9, 5, 40, 24, 25),
+                                                  (3, 7, 12, 16, 64)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_qdist_cell_scan_kernel_matches_plain(dev, B, nprobe, nlist, pad, d,
+                                              metric):
+    from repro_torch.kernels.qdist import ops
+    from repro_torch.kernels.qdist.ref import BIG, qdist_cells_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    cells, n = _cell_table(g, dev, nlist, pad)
+    xq, s = ops.quantize_int8(torch.randn(n, d, generator=g, device=dev))
+    q = torch.randn(B, d, generator=g, device=dev)
+    rows = torch.randint(0, nlist, (B, nprobe), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[torch.rand(B, nprobe, generator=g, device=dev) < 0.2] = -1
+    rows[0] = -1
+    before = ops.launches
+    got = ops.quantized_cell_scan(q, xq, s, cells, rows, metric=metric)
+    assert ops.launches == before + 1
+    want = qdist_cells_ref(q, xq, s, cells, rows, metric)
+    dead = want == BIG
+    assert dead.any() and torch.equal(got[dead], want[dead])
+    torch.testing.assert_close(got[~dead], want[~dead], rtol=1e-4, atol=2e-3)

@@ -27,6 +27,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.anns.backends.brute_force" in mods
     assert "repro_torch.launch.train_crinn" in mods
     assert "repro_torch.kernels.flash.ops" in mods
+    assert "repro_torch.anns.backends.sharded" in mods
+    assert "repro_torch.anns.ivf.kmeans" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -25,7 +25,8 @@ def _jax_variant(v):
 
 
 @pytest.fixture(scope="module", params=["graph", "brute_force",
-                                        "quantized_prefilter"])
+                                        "quantized_prefilter", "ivf",
+                                        "sharded"])
 def pair(request):
     """(queries, reference backend, port backend holding its state)."""
     name = request.param
@@ -93,7 +94,7 @@ def test_execute_search_batch_pads_and_slices(pair):
                                     SearchParams(k=10), max_batch=16)
 
 
-@pytest.mark.parametrize("backend", ["brute_force", "graph"])
+@pytest.mark.parametrize("backend", ["brute_force", "graph", "ivf"])
 def test_serve_main_runs_on_cpu(backend, capsys):
     rec = serve.main(["--n-base", "800", "--n-query", "32", "--n-requests",
                       "64", "--backend", backend, "--device", "cpu"])
