@@ -6,14 +6,21 @@ Phases (one JSON line each; any failure raises, and the script then exits
 non-zero without its last line):
 
 1. device   -- the card's name and power limit (nvidia-smi); no card = error.
-2. build    -- nvcc builds every kernel of the port, one process per source.
+2. build    -- nvcc builds every kernel of the port, one process per source;
+               ptxas's register report and the count of HMMA (tensor-core
+               mma) instructions in each library's SASS, which distance
+               and flash (3xTF32 mma.sync) must have.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                (distance and qdist within rtol 1e-4 / atol 2e-3, topk ids
                and values exact, flash within 2e-3 in fp32 and 2e-2 in
-               bf16; the qdist cell scan at the 1M ivf layout's shapes, its
-               -1 slots exactly BIG), then timed at the main path's shapes
-               beside the plain version, one PyTorch library call and the
-               card's bound.
+               bf16, also on views one float off 16 bytes and, for flash,
+               bit-equal on strided and contiguous inputs; the qdist cell
+               scan at the 1M ivf layout's shapes, its -1 slots exactly
+               BIG), then timed at the main path's shapes beside the plain
+               version, one PyTorch library call (SDPA's kernel named from
+               the trace) and the card's bound (3xTF32 products at three
+               TF32 passes for distance and flash, beside the CUDA-core
+               bound of earlier PRs).
 4. main     -- the serving path at SIFT1M scale (1,000,000 x 128 base,
                10,000 queries, gt on the card): build, then serve 2,048
                requests through AnnsServer (max_batch 64, k 10, ef 64) for
@@ -54,10 +61,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and fp32
-#: FLOP/s outside the tensor cores (the kernels compute in plain fp32)
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
+#: outside the tensor cores, and TF32 FLOP/s on them (distance and flash
+#: take their products in 3xTF32: three TF32 passes per product)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
+TF32_FLOPS_S = 495e12
 
 #: recall@10 of the JAX package on the CPU, sift-128 at 20,000 x 256, seed 0
 #: (the ivf family's: IVF_BASELINE and SHARDED_BASELINE at 1, 2, 4 shards)
@@ -104,12 +113,20 @@ def phase_device() -> str:
 KERNELS = ("distance", "topk", "qdist", "flash")
 
 
+#: the kernels whose products run on the tensor cores (3xTF32 mma.sync)
+TENSOR_CORE_KERNELS = ("distance", "flash")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     seconds = _build.build(KERNELS)
     usage = {n: [ln.strip() for ln in _build.BUILD_LOGS.get(n, "").splitlines()
                  if "Used" in ln] for n in KERNELS}
-    emit({"phase": "build", "seconds": seconds, "ptxas": usage})
+    hmma = {n: _build.sass_count(n, "HMMA") for n in KERNELS}
+    emit({"phase": "build", "seconds": seconds, "ptxas": usage,
+          "sass_hmma": hmma})
+    for n in TENSOR_CORE_KERNELS:
+        check(hmma[n] > 0, f"{n}: no HMMA instruction in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -152,25 +169,57 @@ def traced(fn):
                   if _self_device_us(e) > 0}
 
 
-def device_ms(fn, args_list) -> float:
+def device_profile(fn, args_list) -> tuple[float, dict]:
     """Device time per call: every kernel the calls launched, summed from
-    the profiler trace, over the number of calls."""
+    the profiler trace, over the number of calls; and device us by kernel
+    name."""
     for a in args_list[:3]:
         fn(*a)
 
     def run():
         for a in args_list:
             fn(*a)
-    _, by_kernel = traced(run)
-    total = sum(by_kernel.values())
-    check(total > 0, "the profiler saw no device time")
-    return total / 1e3 / len(args_list)
+    # a trace now and then comes back without its device activity (seen on
+    # the H100 machine): take another, three at most
+    for _ in range(3):
+        _, by_kernel = traced(run)
+        total = sum(by_kernel.values())
+        if total > 0:
+            return total / 1e3 / len(args_list), by_kernel
+    raise AssertionError("the profiler saw no device time in three traces")
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, nops / FP32_FLOPS_S
+def device_ms(fn, args_list) -> float:
+    return device_profile(fn, args_list)[0]
+
+
+def bound(nbytes: float, nops: float, tf32x3_ops: float = 0.0
+          ) -> tuple[float, str]:
+    """The least time of a call, ms, and what binds it: its bytes over the
+    HBM rate, or its operations: ``nops`` fp32 operations on the CUDA
+    cores and, for a 3xTF32 kernel, ``tf32x3_ops`` product operations at
+    three TF32 tensor-core passes each (the two units run side by side, so
+    the slower counts)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(nops / FP32_FLOPS_S, 3.0 * tf32x3_ops / TF32_FLOPS_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose storage starts one element past an aligned
+    address: what the kernels' 4-byte-staging variant serves."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+#: the reference's six distance shapes (tests/test_kernels.py), the
+#: brute_force chunk and a k-means assignment step: (nq, nx, d)
+DISTANCE_SHAPES = [(128, 256, 128), (100, 300, 96), (8, 1000, 25),
+                   (256, 512, 960), (1, 128, 784), (17, 33, 100),
+                   (64, 8192, 128), (4096, 1024, 128)]
 
 
 def phase_kernels() -> dict:
@@ -185,40 +234,59 @@ def phase_kernels() -> dict:
 
     # -- distance ----------------------------------------------------------
     err = 0.0
-    shapes = [(128, 256, 128), (100, 300, 96), (8, 1000, 25),
-              (256, 512, 960), (1, 128, 784), (17, 33, 100), (64, 8192, 128)]
-    for nq, nx, d in shapes:
+    for nq, nx, d in DISTANCE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(nq, d, generator=gen, device=dev).to(dtype)
             x = torch.randn(nx, d, generator=gen, device=dev).to(dtype)
-            for metric in ("l2", "ip"):
-                got = dist_ops.pairwise_distance(q, x, metric=metric)
-                want = distance_ref(q, x, metric)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
-                err = max(err, float((got - want).abs().max()))
-    nq, nx, d, reps = 64, 8192, 128, 50
-    q = torch.randn(nq, d, generator=gen, device=dev)
-    xs = torch.randn(reps * nx, d, generator=gen, device=dev)
-    args = [(q, xs[i * nx:(i + 1) * nx]) for i in range(reps)]
+            # fp32 views one float off 16 bytes take the 4-byte staging
+            views = [(q, x)] + ([(offset_view(q), offset_view(x))]
+                                if dtype == torch.float32 else [])
+            for qv, xv in views:
+                for metric in ("l2", "ip"):
+                    got = dist_ops.pairwise_distance(qv, xv, metric=metric)
+                    want = distance_ref(qv, xv, metric)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+                    err = max(err, float((got - want).abs().max()))
+    reps = 50
     kernel = (lambda a, b: dist_ops.pairwise_distance(a, b))
     plain = (lambda a, b: distance_ref(a, b, "l2"))
     library = (lambda a, b: torch.matmul(a, b.T))
-    ms, plain_ms, lib_ms = (device_ms(f, args) for f in (kernel, plain, library))
-    event_ms = {n: time_ms(f, args) for n, f in
+
+    def dist_bounds(nq, nx, d):
+        nbytes = 4.0 * (nq * d + nx * d + nq * nx)
+        other = 2.0 * (nq + nx) * d + 3.0 * nq * nx     # norms, epilogue
+        products = 2.0 * nq * nx * d
+        b_ms, b_by = bound(nbytes, other, products)
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                "bound_cuda_core_ms": bound(nbytes, other + products)[0]}
+
+    at_shapes = {}
+    # the brute_force chunk (the main shape), the ivf coarse probe over
+    # the 1M layout's 1,569 centroids, a k-means assignment step
+    for nq, nx, d in ((64, 8192, 128), (64, 1569, 128), (4096, 1024, 128)):
+        q = torch.randn(nq, d, generator=gen, device=dev)
+        xs = torch.randn(reps * nx, d, generator=gen, device=dev)
+        args = [(q, xs[i * nx:(i + 1) * nx]) for i in range(reps)]
+        row = {"ms": device_ms(kernel, args),
+               "library_ms": device_ms(library, args),
+               **dist_bounds(nq, nx, d)}
+        if nx == 8192:
+            row["plain_ms"] = device_ms(plain, args)
+            row["per_call_event_ms"] = {
+                n: time_ms(f, args) for n, f in
                 (("kernel", kernel), ("plain", plain), ("library", library))}
-    b_ms, b_by = bound(4.0 * (nq * d + nx * d + nq * nx),
-                       2.0 * nq * nx * d + 2.0 * (nq + nx) * d + 3.0 * nq * nx)
+        at_shapes[f"{nq}x{nx}x{d}"] = row
+        del xs, args
+    main_row = at_shapes.pop("64x8192x128")
     out["distance"] = {
         "name": "distance", "route": "cuda",
         "source": "src/repro_torch/csrc/distance.cu",
         "replaces": "src/repro/kernels/distance/distance.py:46",
         "max_abs_err": err, "tolerance": "rtol 1e-4, atol 2e-3",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "library_call": "torch.matmul(q, x.T)",
-        "shape": [nq, nx, d], "per_call_event_ms": event_ms}
+        **main_row, "library_call": "torch.matmul(q, x.T)",
+        "shape": [64, 8192, 128], "at_shapes": at_shapes}
     emit({"phase": "kernel", **out["distance"]})
-    del xs, args
 
     # -- topk ---------------------------------------------------------------
     def check_topk(dm: torch.Tensor, k: int) -> None:
@@ -406,6 +474,10 @@ FLASH_SHAPES = [(2, 256, 4, 2, 64, 0, 0.0), (1, 256, 8, 8, 128, 0, 50.0),
                 (1, 200, 4, 1, 64, 64, 30.0), (2, 333, 8, 2, 32, 0, 0.0),
                 (6, 35, 12, 12, 64, 0, 0.0), (6, 128, 12, 12, 64, 0, 0.0)]
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+#: the folding at its limits (a group of 4, of 64), S of 1 and of 65 (a
+#: second kv tile with one key), checked on the card only
+FLASH_EDGE_SHAPES = [(3, 65, 16, 4, 64, 0, 0.0), (2, 65, 64, 1, 64, 0, 0.0),
+                     (4, 1, 12, 12, 64, 0, 0.0), (1, 65, 8, 8, 128, 16, 0.0)]
 
 
 def kernel_flash(gen) -> dict:
@@ -421,17 +493,28 @@ def kernel_flash(gen) -> dict:
                       for h in (Hq, Hk, Hk)) for _ in range(n)]
 
     err = {}
-    for B, S, Hq, Hk, D, win, cap in FLASH_SHAPES:
+    for B, S, Hq, Hk, D, win, cap in FLASH_SHAPES + FLASH_EDGE_SHAPES:
         for dtype, tol in FLASH_TOL.items():
             ((q, k, v),) = qkv(B, S, Hq, Hk, D, dtype)
             kw = dict(q_scale=D ** -0.5, window=win, softcap=cap)
-            got = flash_ops.causal_attention(q, k, v, **kw)
             want = flash_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol)
-            e = float((got.float() - want.float()).abs().max())
-            err[str(dtype)] = max(err.get(str(dtype), 0.0), e)
+            # fp32 views one float off 16 bytes take the 4-byte staging
+            views = [(q, k, v)] + ([tuple(offset_view(t) for t in (q, k, v))]
+                                   if dtype == torch.float32 else [])
+            for qv, kv_, vv in views:
+                got = flash_ops.causal_attention(qv, kv_, vv, **kw)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
+                e = float((got.float() - want.float()).abs().max())
+                err[str(dtype)] = max(err.get(str(dtype), 0.0), e)
+    # strided views into one fused projection: bit-equal to contiguous ones
+    fused = torch.randn(2, 35, 3, 4, 64, generator=gen, device=dev)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    check(torch.equal(flash_ops.causal_attention(q, k, v, q_scale=0.125),
+                      flash_ops.causal_attention(q.contiguous(), k.contiguous(),
+                                                 v.contiguous(), q_scale=0.125)),
+          "flash: strided and contiguous inputs give different outputs")
     # causality: changing future kv must not change past outputs
     ((q, k, v),) = qkv(1, 256, 2, 2, 64)
     o1 = flash_ops.causal_attention(q, k, v, q_scale=0.125)
@@ -456,14 +539,22 @@ def kernel_flash(gen) -> dict:
         torch.testing.assert_close(sdpa(q, k, v).transpose(1, 2),
                                    flash_ref(q, k, v, q_scale=D ** -0.5),
                                    rtol=2e-3, atol=2e-3)
-        ms, plain_ms, lib_ms = (device_ms(f, args) for f in (kernel, plain, sdpa))
+        ms, plain_ms = (device_ms(f, args) for f in (kernel, plain))
+        lib_ms, lib_kernels = device_profile(sdpa, args)
         event_ms = {n: time_ms(f, args) for n, f in
                     (("kernel", kernel), ("plain", plain), ("library", sdpa))}
-        b_ms, b_by = bound(4.0 * 4 * B * S * H * D,
-                           4.0 * B * H * D * S * (S + 1) / 2)
+        # bytes: q, k, v read once, out written once; operations: the two
+        # products over the causal triangle (3xTF32), the softmax's ~4 fp32
+        # operations per score on the CUDA cores
+        nbytes = 4.0 * 4 * B * S * H * D
+        products = 4.0 * B * H * D * S * (S + 1) / 2
+        other = 4.0 * B * H * S * (S + 1) / 2
+        b_ms, b_by = bound(nbytes, other, products)
         timed[(B, S, H, D)] = {"ms": ms, "plain_ms": plain_ms,
                                "bound_ms": b_ms, "bound_by": b_by,
+                               "bound_cuda_core_ms": bound(nbytes, products)[0],
                                "library_ms": lib_ms,
+                               "library_kernels": top_kernels(lib_kernels, 3),
                                "per_call_event_ms": event_ms}
         del args
     main_shape, long_shape = timed

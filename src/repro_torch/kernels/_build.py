@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -I csrc -o build/repro_torch/<name>-<hash>.so \
+         csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from the build directory
+The library name carries a hash of the source, of every shared header
+(``csrc/*.cuh``, found with ``-I csrc/``) and of the flags, so an edited
+source or header rebuilds and an unchanged one loads from the build directory
 (``build/repro_torch/`` at the root of the checkout, git-ignored).
 :func:`build` starts one nvcc per missing library, all at once, and waits
 for them together.  Nothing here runs at import time.
@@ -46,9 +48,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> float:
@@ -65,7 +69,8 @@ def build(names) -> float:
         procs = {}
         for n in todo:
             tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -81,6 +86,17 @@ def build(names) -> float:
         if failed:
             raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of ``opcode`` (e.g. ``HMMA``, the tensor cores' mma) in
+    the built library of ``csrc/<name>.cu``, from ``cuobjdump --dump-sass``
+    (beside nvcc)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(f" {opcode}" in ln for ln in sass.splitlines())
 
 
 def load(name: str) -> ctypes.CDLL:

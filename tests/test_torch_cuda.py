@@ -36,6 +36,37 @@ def test_distance_kernel_matches_plain(dev, nq, nx, d, dtype, metric):
                                atol=2e-3)
 
 
+def _offset_view(t):
+    """A copy of ``t`` starting one element past an aligned address (the
+    kernels' 4-byte-staging variant)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# views one float off 16 bytes, nq not a multiple of 16, the k-means shape
+@pytest.mark.parametrize("nq,nx,d,offset", [(64, 8192, 128, True),
+                                            (17, 33, 100, True),
+                                            (100, 5000, 128, False),
+                                            (4096, 1024, 128, False)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_distance_kernel_alignment_and_shapes(dev, nq, nx, d, offset, metric):
+    from repro_torch.kernels.distance import ops
+    from repro_torch.kernels.distance.ref import distance_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(nq, d, generator=g, device=dev)
+    x = torch.randn(nx, d, generator=g, device=dev)
+    if offset:
+        q, x = _offset_view(q), _offset_view(x)
+        assert q.data_ptr() % 16 and x.data_ptr() % 16
+    before = ops.launches
+    got = ops.pairwise_distance(q, x, metric=metric)
+    assert ops.launches == before + 1
+    torch.testing.assert_close(got, distance_ref(q, x, metric), rtol=1e-4,
+                               atol=2e-3)
+
+
 @pytest.mark.parametrize("nq,nx,k", [(64, 8192, 10), (64, 8192, 100),
                                      (9, 2048, 64), (64, 1230, 10),
                                      (3, 40000, 1)])
@@ -107,6 +138,35 @@ def test_flash_kernel_reads_strided_inputs_in_place(dev):
     want = ops.causal_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), q_scale=0.125)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# G 4 and G 64 folding, S 1 and S 65 (one key in a second kv tile), a
+# window across tiles
+@pytest.mark.parametrize("B,S,Hq,Hk,D,win", [(3, 65, 16, 4, 64, 0),
+                                             (2, 65, 64, 1, 64, 0),
+                                             (4, 1, 12, 12, 64, 0),
+                                             (1, 65, 8, 8, 128, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_folding_and_edges(dev, B, S, Hq, Hk, D, win, dtype):
+    from repro_torch.kernels.flash import ops
+    from repro_torch.kernels.flash.ref import flash_ref
+    q, k, v = _qkv(dev, B, S, Hq, Hk, D, dtype, seed=5)
+    got = ops.causal_attention(q, k, v, q_scale=D ** -0.5, window=win)
+    want = flash_ref(q, k, v, q_scale=D ** -0.5, window=win)
+    tol = 2e-3 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D", [64, 25])
+def test_flash_kernel_offset_views(dev, D):
+    """q, k and v one float off 16 bytes (the 4-byte-staging variant)."""
+    from repro_torch.kernels.flash import ops
+    from repro_torch.kernels.flash.ref import flash_ref
+    q, k, v = (_offset_view(t) for t in _qkv(dev, 6, 35, 12, 4, D, "float32"))
+    assert q.data_ptr() % 16
+    got = ops.causal_attention(q, k, v, q_scale=D ** -0.5)
+    torch.testing.assert_close(got, flash_ref(q, k, v, q_scale=D ** -0.5),
+                               rtol=2e-3, atol=2e-3)
 
 
 def test_flash_kernel_is_causal(dev):
