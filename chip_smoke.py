@@ -8,19 +8,22 @@ non-zero without its last line):
 1. device   -- the card's name and power limit (nvidia-smi); no card = error.
 2. build    -- nvcc builds every kernel of the port, one process per source;
                ptxas's register report and the count of HMMA (tensor-core
-               mma) instructions in each library's SASS, which distance
-               and flash (3xTF32 mma.sync) must have.
+               mma) instructions in each library's SASS, which distance,
+               qdist and flash (TF32 mma.sync) must have.
 3. kernels  -- each kernel against its plain PyTorch version on the card
                (distance and qdist within rtol 1e-4 / atol 2e-3, topk ids
-               and values exact, flash within 2e-3 in fp32 and 2e-2 in
-               bf16, also on views one float off 16 bytes and, for flash,
-               bit-equal on strided and contiguous inputs; the qdist cell
-               scan at the 1M ivf layout's shapes, its -1 slots exactly
-               BIG), then timed at the main path's shapes beside the plain
-               version, one PyTorch library call (SDPA's kernel named from
-               the trace) and the card's bound (3xTF32 products at three
-               TF32 passes for distance and flash, beside the CUDA-core
-               bound of earlier PRs).
+               and value bits exact, also at k = nx, a 1,000,000-value row,
+               ties across a warp's and a step's edge, NaN and +-0, rows
+               mostly BIG, k = 300 over 123 chunks' merge and k = nx past
+               the row sort's 28,672 values (the k rounds); flash
+               within 2e-3 in fp32 and 2e-2 in bf16; views one element off
+               16 bytes and, for flash, bit-equal on strided and contiguous
+               inputs; the qdist cell scan at the 1M ivf layout's shapes,
+               its -1 slots exactly BIG), then timed at the main path's
+               shapes beside the plain version, one PyTorch library call
+               (SDPA's kernel named from the trace) and the card's bound
+               (TF32 products at three passes for distance and flash, two
+               for qdist's exact int8 codes, beside the CUDA-core bound).
 4. main     -- the serving path at SIFT1M scale (1,000,000 x 128 base,
                10,000 queries, gt on the card): build, then serve 2,048
                requests through AnnsServer (max_batch 64, k 10, ef 64) for
@@ -45,6 +48,13 @@ non-zero without its last line):
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
+
+    python3 chip_smoke.py --kernel-times NAME [PATH/src]
+
+times only kernel NAME (distance or topk) at the main path's shapes, with
+the same method, from the ``repro_torch`` under PATH/src (another
+checkout, e.g. a parent commit unpacked with ``git archive``) or this
+tree's, and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -63,7 +73,8 @@ import torch  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
 #: outside the tensor cores, and TF32 FLOP/s on them (distance and flash
-#: take their products in 3xTF32: three TF32 passes per product)
+#: take their products in 3xTF32, three TF32 passes per product; qdist in
+#: two, its int8 codes being exact in TF32)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
 TF32_FLOPS_S = 495e12
@@ -113,8 +124,8 @@ def phase_device() -> str:
 KERNELS = ("distance", "topk", "qdist", "flash")
 
 
-#: the kernels whose products run on the tensor cores (3xTF32 mma.sync)
-TENSOR_CORE_KERNELS = ("distance", "flash")
+#: the kernels whose products run on the tensor cores (TF32 mma.sync)
+TENSOR_CORE_KERNELS = ("distance", "qdist", "flash")
 
 
 def phase_build() -> None:
@@ -193,15 +204,15 @@ def device_ms(fn, args_list) -> float:
     return device_profile(fn, args_list)[0]
 
 
-def bound(nbytes: float, nops: float, tf32x3_ops: float = 0.0
-          ) -> tuple[float, str]:
+def bound(nbytes: float, nops: float, tf32_ops: float = 0.0,
+          passes: int = 3) -> tuple[float, str]:
     """The least time of a call, ms, and what binds it: its bytes over the
     HBM rate, or its operations: ``nops`` fp32 operations on the CUDA
-    cores and, for a 3xTF32 kernel, ``tf32x3_ops`` product operations at
-    three TF32 tensor-core passes each (the two units run side by side, so
-    the slower counts)."""
+    cores and, for a tensor-core kernel, ``tf32_ops`` product operations
+    at ``passes`` TF32 passes each (3 for 3xTF32, 2 where one operand is
+    exact in TF32; the two units run side by side, so the slower counts)."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(nops / FP32_FLOPS_S, 3.0 * tf32x3_ops / TF32_FLOPS_S)
+    t_ops = max(nops / FP32_FLOPS_S, passes * tf32_ops / TF32_FLOPS_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -220,6 +231,46 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 DISTANCE_SHAPES = [(128, 256, 128), (100, 300, 96), (8, 1000, 25),
                    (256, 512, 960), (1, 128, 784), (17, 33, 100),
                    (64, 8192, 128), (4096, 1024, 128)]
+
+
+def distance_times(gen, plain: bool = False) -> dict:
+    """distance's device ms at the brute_force chunk, the ivf coarse probe
+    over the 1M layout's 1,569 centroids and a k-means assignment step,
+    over 50 distinct inputs, beside torch.matmul's and the bound (three
+    TF32 passes, and the CUDA-core bound); at the brute_force chunk also
+    the plain version and CUDA-event times."""
+    from repro_torch.kernels.distance import ops as dist_ops
+    from repro_torch.kernels.distance.ref import distance_ref
+    dev = torch.device("cuda")
+    reps = 50
+    kernel = (lambda a, b: dist_ops.pairwise_distance(a, b))
+    plain_fn = (lambda a, b: distance_ref(a, b, "l2"))
+    library = (lambda a, b: torch.matmul(a, b.T))
+
+    def dist_bounds(nq, nx, d):
+        nbytes = 4.0 * (nq * d + nx * d + nq * nx)
+        other = 2.0 * (nq + nx) * d + 3.0 * nq * nx     # norms, epilogue
+        products = 2.0 * nq * nx * d
+        b_ms, b_by = bound(nbytes, other, products)
+        return {"bound_ms": b_ms, "bound_by": b_by,
+                "bound_cuda_core_ms": bound(nbytes, other + products)[0]}
+
+    at_shapes = {}
+    for nq, nx, d in ((64, 8192, 128), (64, 1569, 128), (4096, 1024, 128)):
+        q = torch.randn(nq, d, generator=gen, device=dev)
+        xs = torch.randn(reps * nx, d, generator=gen, device=dev)
+        args = [(q, xs[i * nx:(i + 1) * nx]) for i in range(reps)]
+        row = {"ms": device_ms(kernel, args),
+               "library_ms": device_ms(library, args),
+               **dist_bounds(nq, nx, d)}
+        if plain and nx == 8192:
+            row["plain_ms"] = device_ms(plain_fn, args)
+            row["per_call_event_ms"] = {
+                n: time_ms(f, args) for n, f in
+                (("kernel", kernel), ("plain", plain_fn), ("library", library))}
+        at_shapes[f"{nq}x{nx}x{d}"] = row
+        del xs, args
+    return at_shapes
 
 
 def phase_kernels() -> dict:
@@ -248,36 +299,7 @@ def phase_kernels() -> dict:
                     torch.cuda.synchronize()
                     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
                     err = max(err, float((got - want).abs().max()))
-    reps = 50
-    kernel = (lambda a, b: dist_ops.pairwise_distance(a, b))
-    plain = (lambda a, b: distance_ref(a, b, "l2"))
-    library = (lambda a, b: torch.matmul(a, b.T))
-
-    def dist_bounds(nq, nx, d):
-        nbytes = 4.0 * (nq * d + nx * d + nq * nx)
-        other = 2.0 * (nq + nx) * d + 3.0 * nq * nx     # norms, epilogue
-        products = 2.0 * nq * nx * d
-        b_ms, b_by = bound(nbytes, other, products)
-        return {"bound_ms": b_ms, "bound_by": b_by,
-                "bound_cuda_core_ms": bound(nbytes, other + products)[0]}
-
-    at_shapes = {}
-    # the brute_force chunk (the main shape), the ivf coarse probe over
-    # the 1M layout's 1,569 centroids, a k-means assignment step
-    for nq, nx, d in ((64, 8192, 128), (64, 1569, 128), (4096, 1024, 128)):
-        q = torch.randn(nq, d, generator=gen, device=dev)
-        xs = torch.randn(reps * nx, d, generator=gen, device=dev)
-        args = [(q, xs[i * nx:(i + 1) * nx]) for i in range(reps)]
-        row = {"ms": device_ms(kernel, args),
-               "library_ms": device_ms(library, args),
-               **dist_bounds(nq, nx, d)}
-        if nx == 8192:
-            row["plain_ms"] = device_ms(plain, args)
-            row["per_call_event_ms"] = {
-                n: time_ms(f, args) for n, f in
-                (("kernel", kernel), ("plain", plain), ("library", library))}
-        at_shapes[f"{nq}x{nx}x{d}"] = row
-        del xs, args
+    at_shapes = distance_times(gen, plain=True)
     main_row = at_shapes.pop("64x8192x128")
     out["distance"] = {
         "name": "distance", "route": "cuda",
@@ -290,46 +312,36 @@ def phase_kernels() -> dict:
 
     # -- topk ---------------------------------------------------------------
     def check_topk(dm: torch.Tensor, k: int) -> None:
+        before = topk_ops.launches
         v, i = topk_ops.topk_smallest(dm, k)
         wv, wi = topk_smallest_ref(dm, k)
         torch.cuda.synchronize()
-        check(torch.equal(i, wi), f"topk ids differ at {tuple(dm.shape)} k={k}")
-        check(torch.equal(v, wv), f"topk values differ at {tuple(dm.shape)} k={k}")
+        where = f"{tuple(dm.shape)} k={k}"
+        check(topk_ops.launches == before + 1, f"topk: not one launch at {where}")
+        check(torch.equal(i, wi), f"topk ids differ at {where}")
+        # bit-equal values: NaN equals NaN, -0 stays -0
+        check(torch.equal(v.view(torch.int32), wv.view(torch.int32)),
+              f"topk values differ at {where}")
 
-    for nq_, nx_, k in [(8, 128, 10), (5, 1000, 32), (16, 333, 100),
-                        (1, 50, 5), (9, 2048, 64), (64, 8192, 10),
-                        (64, 8192, 100), (64, 8192, 1), (64, 1230, 10),
-                        (4, 40000, 16)]:
+    for nq_, nx_, k in TOPK_CHECKS:
         check_topk(torch.randn(nq_, nx_, generator=gen, device=dev), k)
-    ties = torch.zeros(64, 8192, device=dev)
-    ties[:, 10] = -1.0
-    ties[::2, 4000] = -0.0
-    check_topk(ties, 10)
+    for dm, k in topk_edge_cases(gen, dev).values():
+        check_topk(dm, k)
     big = torch.full((64, 8192), 3.0e38, device=dev)
     big[:, 5], big[:, 9] = 1.0, 2.0
     check_topk(big, 100)
     _, i = topk_ops.topk_smallest(big, 5)
     check(i[0].tolist() == [5, 9, 0, 1, 2], f"mostly-BIG row gave {i[0].tolist()}")
-    nq, nx, k = 64, 8192, 10
-    ds_ = torch.randn(reps, nq, nx, generator=gen, device=dev)
-    args = [(ds_[r],) for r in range(reps)]
-    kernel = (lambda a: topk_ops.topk_smallest(a, k))
-    plain = (lambda a: topk_smallest_ref(a, k))
-    library = (lambda a: torch.topk(a, k, dim=1, largest=False))
-    ms, plain_ms, lib_ms = (device_ms(f, args) for f in (kernel, plain, library))
-    event_ms = {n: time_ms(f, args) for n, f in
-                (("kernel", kernel), ("plain", plain), ("library", library))}
-    b_ms, b_by = bound(4.0 * nq * nx + 8.0 * nq * k, 1.0 * nq * nx)
+    torch.cuda.empty_cache()
+    timed = topk_times(gen, plain=True)
+    main_row = timed.pop("64x8192k10")
     out["topk"] = {
         "name": "topk", "route": "cuda", "source": "src/repro_torch/csrc/topk.cu",
         "replaces": "src/repro/kernels/topk/topk.py:45",
-        "max_abs_err": 0.0, "tolerance": "ids and values exact",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms,
-        "library_call": "torch.topk(d, k, largest=False)",
-        "shape": [nq, nx, k], "per_call_event_ms": event_ms}
+        "max_abs_err": 0.0, "tolerance": "ids and value bits exact",
+        **main_row, "library_call": "torch.topk(d, k, largest=False)",
+        "shape": [64, 8192, 10], "at_shapes": timed}
     emit({"phase": "kernel", **out["topk"]})
-    del ds_, args
     torch.cuda.empty_cache()
     out["qdist"] = kernel_qdist(gen)
     emit({"phase": "kernel", **out["qdist"]})
@@ -340,10 +352,104 @@ def phase_kernels() -> dict:
     return out
 
 
+#: topk against its plain version: (nq, nx, k), the main path's shapes
+#: among them (the brute_force chunk and its merge, the ivf coarse probe at
+#: ef 64 and at the all-cells probe, a k-means assignment)
+TOPK_CHECKS = [(8, 128, 10), (5, 1000, 32), (16, 333, 100), (1, 50, 5),
+               (9, 2048, 64), (64, 8192, 10), (64, 8192, 100), (64, 8192, 1),
+               (64, 1230, 10), (4, 40000, 16), (64, 1569, 16),
+               (64, 1569, 1569), (4096, 1024, 1), (3, 9000, 256),
+               (3, 9001, 257), (7, 4097, 1), (64, 123 * 300, 300)]
+#: the main path's topk shapes, timed: (nq, nx, k)
+TOPK_SHAPES = [(64, 8192, 10), (64, 1230, 10), (64, 1569, 16),
+               (64, 1569, 1569), (4096, 1024, 1)]
+
+
+def topk_edge_cases(gen, dev) -> dict:
+    """Inputs that probe the kernel's seams: {name: (d, k)}."""
+    cases = {}
+    # a row past the old kernel's 57,856-value limit
+    cases["long row"] = (torch.randn(2, 1_000_000, generator=gen, device=dev), 10)
+    # equal values on both sides of a warp's edge (column 1,024) and of a
+    # step's (8,192: a row of 20,000 takes three), cut in their middle
+    d = torch.rand(4, 20_000, generator=gen, device=dev) + 1.0
+    d[:, 1020:1030] = 0.5
+    d[:, 8188:8196] = 0.5
+    cases["ties at edges"] = (d, 12)
+    t = torch.zeros(64, 8192, device=dev)
+    t[:, 10] = -1.0
+    t[::2, 4000] = -0.0
+    cases["zeros"] = (t, 10)
+    # the k smallest all in the row's last values
+    d = torch.rand(4, 8192 + 777, generator=gen, device=dev) + 1.0
+    d[:, -10:] = -torch.arange(10, device=dev, dtype=torch.float32)
+    cases["last values"] = (d, 10)
+    # NaN and +-0 in one row, through the select and the row sort
+    d = torch.randn(3, 3000, generator=gen, device=dev)
+    d[:, 7], d[:, 9], d[:, 11] = float("nan"), -0.0, 0.0
+    d[:, 13], d[:, 15] = float("inf"), float("-inf")
+    cases["nan and zeros"] = (d, 10)
+    cases["nan and zeros, k = nx"] = (d, 3000)
+    nan = torch.full((2, 2000), float("nan"), device=dev)
+    nan[:, 3], nan[:, 5] = 0.0, -0.0
+    cases["mostly nan"] = (nan, 20)
+    # k = nx past the row sort's 28,672 values: the k rounds
+    cases["k = nx past the row sort"] = (
+        torch.randn(2, 30_000, generator=gen, device=dev), 30_000)
+    # a selective filter: 4 values a row below BIG, in a chunk and a merge
+    cases["mostly BIG"] = (mostly_big(gen, 64, 8192), 10)
+    cases["mostly BIG, merge"] = (mostly_big(gen, 64, 1230), 10)
+    return cases
+
+
+def mostly_big(gen, nq: int, nx: int, reps: int = 1) -> torch.Tensor:
+    """(reps, nq, nx), or (nq, nx) at one rep: BIG (the search's sentinel)
+    but for 4 values in [0, 1) a row, as a selective filter leaves a
+    brute-force chunk."""
+    dev = torch.device("cuda")
+    d = torch.full((reps, nq, nx), 3.0e38, device=dev)
+    cols = torch.randint(0, nx, (reps, nq, 4), generator=gen, device=dev)
+    d.scatter_(2, cols, torch.rand(reps, nq, 4, generator=gen, device=dev))
+    return d[0] if reps == 1 else d
+
+
+def topk_times(gen, plain: bool = False) -> dict:
+    """topk's device ms at each of TOPK_SHAPES over 50 distinct inputs,
+    beside torch.topk's and the bound (each value read once, k pairs
+    written; one compare a value); at the brute_force chunk also the plain
+    version and CUDA-event times."""
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk.ref import topk_smallest_ref
+    dev = torch.device("cuda")
+    reps, rows = 50, {}
+    # the main path's shapes, and the brute_force chunk of a selective filter
+    for nq, nx, k, big in [(*s, False) for s in TOPK_SHAPES] + [(64, 8192, 10, True)]:
+        ds_ = (mostly_big(gen, nq, nx, reps) if big
+               else torch.randn(reps, nq, nx, generator=gen, device=dev))
+        args = [(ds_[r],) for r in range(reps)]
+        kernel = (lambda a, k=k: topk_ops.topk_smallest(a, k))
+        library = (lambda a, k=k: torch.topk(a, k, dim=1, largest=False))
+        b_ms, b_by = bound(4.0 * nq * nx + 8.0 * nq * k, 1.0 * nq * nx)
+        row = {"ms": device_ms(kernel, args), "library_ms": device_ms(library, args),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if plain and (nq, nx, k, big) == (*TOPK_SHAPES[0], False):
+            fn = (lambda a, k=k: topk_smallest_ref(a, k))
+            row["plain_ms"] = device_ms(fn, args)
+            row["per_call_event_ms"] = {
+                n: time_ms(f, args) for n, f in
+                (("kernel", kernel), ("plain", fn), ("library", library))}
+        rows[f"{nq}x{nx}k{k}" + (" mostly BIG" if big else "")] = row
+        del ds_, args
+    return rows
+
+
 #: the 1M x 128 ivf layout's scan: 64 queries, 16 probed cells of a
 #: 2,048-wide cell table over 1,024 cells (sizes uniform in [0, 2048])
 SCAN_SHAPE = {"B": 64, "nprobe": 16, "nlist": 1024, "pad": 2048, "d": 128}
 QDIST_TOL = {"rtol": 1e-4, "atol": 2e-3}
+#: qdist all pairs against its plain version: the reference's shapes
+#: (tests/test_kernels.py), ragged d, and the brute-force chunk: (nq, nx, d)
+QDIST_SHAPES = [(16, 256, 128), (7, 300, 25), (64, 128, 960), (64, 8192, 128)]
 
 
 def cell_table(gen, nlist: int, pad: int):
@@ -363,18 +469,19 @@ def kernel_qdist(gen) -> dict:
 
     dev = torch.device("cuda")
     err = 0.0
-    for nq, nx, d in [(16, 256, 128), (7, 300, 25), (64, 128, 960),
-                      (64, 8192, 128)]:
+    for nq, nx, d in QDIST_SHAPES:
         xq, s = qdist_ops.quantize_int8(
             torch.randn(nx, d, generator=gen, device=dev))
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(nq, d, generator=gen, device=dev).to(dtype)
-            for metric in ("l2", "ip"):
-                got = qdist_ops.quantized_distance(q, xq, s, metric=metric)
-                want = qdist_ref(q, xq, s, metric)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, **QDIST_TOL)
-                err = max(err, float((got - want).abs().max()))
+            # views one element off 16 bytes take the element-wise staging
+            for qv, xv in ((q, xq), (offset_view(q), offset_view(xq))):
+                for metric in ("l2", "ip"):
+                    got = qdist_ops.quantized_distance(qv, xv, s, metric=metric)
+                    want = qdist_ref(qv, xv, s, metric)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, **QDIST_TOL)
+                    err = max(err, float((got - want).abs().max()))
 
     # the cell scan at the 1M layout's shapes, with -1 rows and -1 slots
     B, nprobe, nlist, pad, d = (SCAN_SHAPE[k] for k in
@@ -420,8 +527,13 @@ def kernel_qdist(gen) -> dict:
     lib_ms = device_ms(library, lib_args)
     event_ms = {"kernel": time_ms(kernel, args), "plain": time_ms(plain, args),
                 "library": time_ms(library, lib_args)}
-    b_ms, b_by = bound(4.0 * nq * d + (d + 4.0) * nx + 4.0 * nq * nx,
-                       2.0 * nq * nx * d + 2.0 * (nq + nx) * d + 5.0 * nq * nx)
+    # bytes: q, the codes with their scales, out; operations: the products
+    # in two TF32 passes (int8 codes are exact in TF32), the norms and the
+    # epilogue on the CUDA cores
+    q_bytes = 4.0 * nq * d + (d + 4.0) * nx + 4.0 * nq * nx
+    other = 2.0 * (nq + nx) * d + 5.0 * nq * nx
+    b_ms, b_by = bound(q_bytes, other, 2.0 * nq * nx * d, passes=2)
+    b_cuda_core_ms = bound(q_bytes, other + 2.0 * nq * nx * d)[0]
     del xs, ss, xfs, args, lib_args
 
     # timed: the cell scan, 50 batches of probes over the 1M-row table
@@ -458,7 +570,7 @@ def kernel_qdist(gen) -> dict:
             "replaces": "src/repro/kernels/qdist/qdist.py:47",
             "max_abs_err": err, "tolerance": "rtol 1e-4, atol 2e-3",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "bound_cuda_core_ms": b_cuda_core_ms, "library_ms": lib_ms,
             "library_call": "torch.matmul(q, xf.T), xf dequantized beforehand "
                             "(the product alone)",
             "shape": [nq, nx, d], "per_call_event_ms": event_ms,
@@ -638,10 +750,14 @@ def kernel_counters() -> dict:
 def zero_counts(counters) -> None:
     for m in counters.values():
         m.launches = 0
+    counters["qdist"].scan_launches = 0
 
 
 def read_counts(counters) -> dict:
-    return {name: m.launches for name, m in counters.items()}
+    """Each kernel's launches, and qdist's cell-scan entry's among them."""
+    counts = {name: m.launches for name, m in counters.items()}
+    counts["qdist.cell_scan"] = counters["qdist"].scan_launches
+    return counts
 
 
 def all_cells_recall(backend, ds, n: int = 64) -> dict:
@@ -718,7 +834,7 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
                      if isinstance(v, float))
         check(finite, f"{name}: non-finite metrics {served}")
         launches[f"serve.{name}"] = {k: sum(r["launches"][k] for r in runs)
-                                     for k in counters}
+                                     for k in runs[0]["launches"]}
         if name == "brute_force":
             check(served["recall@10"] >= 0.999,
                   f"brute_force recall@10 {served['recall@10']} < 0.999")
@@ -1094,11 +1210,39 @@ def main() -> None:
         check(by_path, f"{name} was launched on no path")
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+    # qdist's launches by entry (the all-pairs entry has no caller on
+    # these paths)
+    scans = sum(n["qdist.cell_scan"] for n in launches.values())
+    kernels["qdist"]["launches_by_entry"] = {
+        "all_pairs": kernels["qdist"]["launches"] - scans, "cell_scan": scans}
     emit({"kernels": list(kernels.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
+#: ``--kernel-times NAME``: the kernels whose timing runs alone
+KERNEL_TIMES = {"distance": distance_times, "topk": topk_times}
+
+
+def kernel_times_main(args: list) -> None:
+    """``--kernel-times NAME [SRC]``: time kernel NAME alone at the main
+    path's shapes, with the same method as the full run, from the
+    repro_torch under SRC (another checkout, e.g. a parent commit unpacked
+    with ``git archive``) or this tree's."""
+    name, src = args[0], args[1] if len(args) > 1 else os.path.join(ROOT, "src")
+    check(name in KERNEL_TIMES, f"--kernel-times: {name} not in {list(KERNEL_TIMES)}")
+    sys.path.insert(0, os.path.abspath(src))
+    phase_device()
+    import repro_torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    emit({"phase": "kernel_times", "kernel": name,
+          "package": os.path.dirname(repro_torch.__file__),
+          "shapes": KERNEL_TIMES[name](gen)})
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--kernel-times"]:
+        kernel_times_main(sys.argv[2:])
+    else:
+        main()

@@ -1,19 +1,19 @@
 // 3xTF32 tensor-core products and cp.async staging for Hopper (sm_90a).
 //
-// Shared by distance.cu and flash.cu.  A TF32 tensor-core product keeps
-// 10 bits of each operand's mantissa: one pass misses the reference's
-// tolerances (rtol 1e-4 / atol 2e-3 on distances at d = 960).  So each fp32
-// operand x is split into two TF32 values,
+// Shared by distance.cu, qdist.cu and flash.cu.  A TF32 tensor-core
+// product keeps 10 bits of each operand's mantissa: one pass misses the
+// reference's tolerances (rtol 1e-4 / atol 2e-3 on distances at d = 960).
+// So each fp32 operand x is split into two TF32 values,
 //
 //     hi = cvt.rna.tf32(x),   lo = cvt.rna.tf32(x - hi),
 //
 // and a product a * b is taken as lo_a * hi_b + hi_a * lo_b + hi_a * hi_b
 // (the small cross terms first, lo_a * lo_b dropped), all accumulated in
 // fp32: about fp32 accuracy at three tensor-core passes.  This is CUTLASS's
-// OpMultiplyAddFastF32.  A bf16 operand is exact in TF32 (lo = 0), so the
-// passes with its lo factor are skipped (template flags below).  Shared
-// memory holds raw fp32; the split happens in registers as a fragment is
-// read.
+// OpMultiplyAddFastF32.  A bf16 operand is exact in TF32 (lo = 0), and so
+// is an int8 code (qdist.cu), so the passes with its lo factor are skipped
+// (template flags below).  distance.cu and flash.cu keep raw fp32 in
+// shared memory; the split happens in registers as a fragment is read.
 //
 // mma.sync.m16n8k8 (row.col, tf32 in, f32 accumulate): with
 // g = lane / 4 and t = lane % 4, each lane holds

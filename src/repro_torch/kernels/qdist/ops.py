@@ -13,6 +13,8 @@ from repro_torch.kernels.qdist.ref import (qdist_cells_ref, qdist_ref,
 #: kernel launches of both entries since the count was last set to 0 (CPU
 #: calls not counted)
 launches = 0
+#: of those, the cell scan's
+scan_launches = 0
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -65,7 +67,7 @@ def quantized_cell_scan(q: torch.Tensor, xq: torch.Tensor, scale: torch.Tensor,
     pad) int32 positions into ``xq``; rows: (B, nprobe) int32 rows of
     ``cells``.  The CUDA kernel reads the int8 rows in place.
     """
-    global launches
+    global launches, scan_launches
     _check_codes(q, xq, scale, metric)
     check_matrix("cells", cells, (torch.int32,))
     check_matrix("rows", rows, (torch.int32,))
@@ -91,4 +93,5 @@ def quantized_cell_scan(q: torch.Tensor, xq: torch.Tensor, scale: torch.Tensor,
     if out.numel():
         _kernel.launch_cells(q, xq, scale, cells, rows, out, metric)
         launches += 1
+        scan_launches += 1
     return out

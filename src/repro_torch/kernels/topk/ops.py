@@ -25,9 +25,11 @@ def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         return topk_smallest_ref(d, k)
     if d.device.type != "cuda":
         raise ValueError(f"no topk kernel for device {d.device}")
-    if nx > _kernel.max_nx():
-        raise ValueError(f"rows of {nx} values exceed the kernel's "
-                         f"shared-memory row ({_kernel.max_nx()})")
+    if k > _kernel.K_WARP_MAX and nx > _kernel.ROUND_MAX_NX:
+        raise ValueError(f"k={k} > {_kernel.K_WARP_MAX} on a row past "
+                         f"{_kernel.SORT_MAX_NX} values takes k rounds over "
+                         f"the row in shared memory, which holds at most "
+                         f"{_kernel.ROUND_MAX_NX} values; this row has {nx}")
     vals = torch.empty((nq, k), dtype=torch.float32, device=d.device)
     idx = torch.empty((nq, k), dtype=torch.int32, device=d.device)
     if nq:

@@ -91,6 +91,66 @@ def test_topk_kernel_gives_distinct_ids_past_big(dev):
     assert i.tolist() == [[5, 9, 0, 1, 2]] * 4
 
 
+def _check_topk_once(d, k):
+    """One launch, ids equal and value bits equal to the plain version's."""
+    from repro_torch.kernels.topk import ops
+    from repro_torch.kernels.topk.ref import topk_smallest_ref
+    before = ops.launches
+    v, i = ops.topk_smallest(d, k)
+    assert ops.launches == before + 1
+    wv, wi = topk_smallest_ref(d, k)
+    assert torch.equal(i, wi)
+    assert torch.equal(v.view(torch.int32), wv.view(torch.int32))
+
+
+# k = nx (the row sort), a row past the old kernel's 57,856 values, the
+# k-means assignment (k = 1), a step boundary with the k smallest last, a
+# brute-force merge of 123 chunks at k = 300 and k = nx past the row sort
+# (the k rounds)
+@pytest.mark.parametrize("nq,nx,k", [(64, 1569, 1569), (2, 100_000, 10),
+                                     (4096, 1024, 1), (3, 60_000, 256),
+                                     (5, 28672, 300), (64, 123 * 300, 300),
+                                     (2, 40_000, 40_000)])
+def test_topk_kernel_shapes(dev, nq, nx, k):
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = torch.randn(nq, nx, generator=g, device=dev)
+    if nx > 8192:
+        d[:, -3:] = -10.0                  # the smallest in the last step
+    _check_topk_once(d, k)
+
+
+@pytest.mark.parametrize("edge", [1024, 8192])
+def test_topk_kernel_ties_across_an_edge(dev, edge):
+    """Equal values on both sides of a warp's (1,024) or a step's (8,192)
+    edge, cut in their middle: the lower columns first."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    d = torch.rand(4, 20_000, generator=g, device=dev) + 1.0
+    d[:, edge - 5:edge + 5] = 0.5
+    _check_topk_once(d, 7)
+
+
+@pytest.mark.parametrize("nx", [8192, 1230])
+def test_topk_kernel_mostly_big_rows(dev, nx):
+    """A selective filter: each row holds 4 values below BIG, so every
+    BIG ties at the bound; the k lowest of their columns follow."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    d = torch.full((64, nx), 3.0e38, device=dev)
+    cols = torch.randint(0, nx, (64, 4), generator=g, device=dev)
+    d.scatter_(1, cols, torch.rand(64, 4, generator=g, device=dev))
+    _check_topk_once(d, 10)
+
+
+@pytest.mark.parametrize("k", [3, 10, 300])
+def test_topk_kernel_nan_and_signed_zero(dev, k):
+    d = torch.randn(3, 3000, generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    d[:, 7], d[:, 9], d[:, 11] = float("nan"), -0.0, 0.0
+    d[:, 13], d[:, 15] = float("inf"), float("-inf")
+    d[1] = float("nan")
+    d[1, 100], d[1, 50] = -0.0, 0.0
+    _check_topk_once(d, k)
+
+
 def _qkv(dev, B, S, Hq, Hk, D, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, Hq, D, generator=g, device=dev)
@@ -191,6 +251,30 @@ def test_qdist_kernel_matches_plain(dev, nq, nx, d, dtype, metric):
     g = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn(nq, d, generator=g, device=dev).to(getattr(torch, dtype))
     xq, s = ops.quantize_int8(torch.randn(nx, d, generator=g, device=dev))
+    before = ops.launches
+    got = ops.quantized_distance(q, xq, s, metric=metric)
+    assert ops.launches == before + 1
+    torch.testing.assert_close(got, qdist_ref(q, xq, s, metric), rtol=1e-4,
+                               atol=2e-3)
+
+
+# d = 960 and d = 25 (element-wise staging), views one element off 16
+# bytes (element-wise staging at d = 128), ragged nq and nx
+@pytest.mark.parametrize("nq,nx,d,offset", [(64, 4096, 960, False),
+                                            (9, 1000, 25, False),
+                                            (64, 8192, 128, True),
+                                            (33, 65, 48, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_qdist_kernel_staging_variants(dev, nq, nx, d, offset, dtype, metric):
+    from repro_torch.kernels.qdist import ops
+    from repro_torch.kernels.qdist.ref import qdist_ref
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(nq, d, generator=g, device=dev).to(getattr(torch, dtype))
+    xq, s = ops.quantize_int8(torch.randn(nx, d, generator=g, device=dev))
+    if offset:
+        q, xq = _offset_view(q), _offset_view(xq)
+        assert q.data_ptr() % 16 and xq.data_ptr() % 16
     before = ops.launches
     got = ops.quantized_distance(q, xq, s, metric=metric)
     assert ops.launches == before + 1

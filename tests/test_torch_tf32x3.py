@@ -25,8 +25,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.distance.ops import pairwise_distance as jax_pairwise  # noqa: E402
 from repro.kernels.flash.ops import causal_attention as jax_attention  # noqa: E402
+from repro.kernels.qdist.ops import quantized_distance as jax_qdist  # noqa: E402
 from repro_torch.kernels.distance.ref import distance_ref  # noqa: E402
 from repro_torch.kernels.flash.ref import flash_ref  # noqa: E402
+from repro_torch.kernels.qdist.ref import qdist_ref, quantize_ref  # noqa: E402
 
 
 def _chip_smoke():
@@ -54,7 +56,8 @@ def split(x: torch.Tensor):
 
 def product(a, b, eq: str, passes: int, k_axis_a: int, k_axis_b: int):
     """einsum(eq, a, b) in TF32 passes over k-chunks of 8, summed in fp32:
-    3 = lo*hi + hi*lo + hi*hi (the kernels), 1 = hi*hi alone."""
+    3 = lo*hi + hi*lo + hi*hi (distance, flash), 2 = lo*hi + hi*hi (b
+    exact in TF32: qdist's int8 codes), 1 = hi*hi alone."""
     ah, al = split(a)
     bh, bl = split(b)
     k = a.shape[k_axis_a]
@@ -62,7 +65,8 @@ def product(a, b, eq: str, passes: int, k_axis_a: int, k_axis_b: int):
     for k0 in range(0, k, 8):
         def cut(t, axis):
             return t.narrow(axis, k0, min(8, k - k0))
-        terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+        terms = {1: [(ah, bh)], 2: [(al, bh), (ah, bh)],
+                 3: [(al, bh), (ah, bl), (ah, bh)]}[passes]
         for x, y in terms:
             part = torch.einsum(eq, cut(x, k_axis_a), cut(y, k_axis_b))
             out = part if out is None else out + part
@@ -76,6 +80,18 @@ def distance_tf32(q, x, metric, passes):
     qn = torch.sum(q * q, dim=1, keepdim=True)
     xn = torch.sum(x * x, dim=1, keepdim=True)
     return qn + xn.T - 2.0 * dots
+
+
+def qdist_tf32(q, xq, scale, metric, passes):
+    """The qdist kernel's arithmetic: q . codes in TF32 passes (the codes
+    exact), the scale applied once per output, the norm s^2 * sum(code^2)
+    from an exact integer sum."""
+    dots = product(q, xq.float(), "mk,nk->mn", passes, 1, 1)
+    if metric == "ip":
+        return -scale[None, :] * dots
+    qn = torch.sum(q * q, dim=1, keepdim=True)
+    cn = torch.sum(xq.int() * xq.int(), dim=1).float()
+    return qn + (scale * scale * cn)[None, :] - 2.0 * scale[None, :] * dots
 
 
 def attention_tf32(q, k, v, *, q_scale, window, softcap, passes):
@@ -171,3 +187,31 @@ def test_attention_3xtf32_within_tolerance(B, S, Hq, Hk, D, win, cap,
     want_jax = np.asarray(jax_attention(
         *(jnp.pad(jnp.asarray(t), pad) for t in (q, k, v)), **kw))[:, :S]
     np.testing.assert_allclose(got, want_jax, rtol=2e-3, atol=2e-3, err_msg=why)
+
+
+def test_int8_codes_are_exact_in_tf32():
+    """Every code in [-127, 127] is a TF32 value: its hi is itself and its
+    lo is 0, so the code operand's lo pass drops out of qdist's product."""
+    codes = torch.arange(-127, 128, dtype=torch.float32)
+    hi, lo = split(codes)
+    assert torch.equal(hi, codes)
+    assert torch.equal(lo, torch.zeros_like(codes))
+
+
+@pytest.mark.parametrize("nq,nx,d", SMOKE.QDIST_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_qdist_2xtf32_within_tolerance(nq, nx, d, metric, record_property):
+    q = _normal(8, (nq, d))
+    xq, s = quantize_ref(torch.from_numpy(_normal(9, (nx, d))))
+    qt = torch.from_numpy(q)
+    got = qdist_tf32(qt, xq, s, metric, passes=2).numpy()
+    one = qdist_tf32(qt, xq, s, metric, passes=1).numpy()
+    want_ref = qdist_ref(qt, xq, s, metric).numpy()
+    one_pass_err = float(np.abs(one - want_ref).max())
+    record_property("one_pass_max_abs_err", one_pass_err)
+    why = (f"2xTF32 qdist at {nq}x{nx}x{d} {metric}; one TF32 pass would be "
+           f"off by up to {one_pass_err:.3g}")
+    np.testing.assert_allclose(got, want_ref, **SMOKE.QDIST_TOL, err_msg=why)
+    want_jax = np.asarray(jax_qdist(jnp.asarray(q), jnp.asarray(xq.numpy()),
+                                    jnp.asarray(s.numpy()), metric=metric))
+    np.testing.assert_allclose(got, want_jax, **SMOKE.QDIST_TOL, err_msg=why)
