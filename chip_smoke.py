@@ -14,8 +14,9 @@ non-zero without its last line):
                (distance and qdist within rtol 1e-4 / atol 2e-3, topk ids
                and value bits exact, also at k = nx, a 1,000,000-value row,
                ties across a warp's and a step's edge, NaN and +-0, rows
-               mostly BIG, k = 300 over 123 chunks' merge and k = nx past
-               the row sort's 28,672 values (the k rounds); flash
+               mostly BIG, k = 300 and 471 over 123 chunks' merge and
+               k = nx past the row sort's 28,672 values, to 100,000 (the
+               step sort); flash
                within 2e-3 in fp32 and 2e-2 in bf16; views one element off
                16 bytes and, for flash, bit-equal on strided and contiguous
                inputs; the qdist cell scan at the 1M ivf layout's shapes,
@@ -30,13 +31,33 @@ non-zero without its last line):
                brute_force, graph, quantized_prefilter, ivf (nlist 1,024,
                nprobe 16, cells capped at 2,048) and sharded (the same in 2
                shards).  The kernels' launch counters are set to 0 just
-               before and read just after each serving run.
-5. ref20k   -- recall@10 of graph / quantized_prefilter / ivf / sharded
+               before and read just after each serving run.  brute_force
+               also serves k = 471 (its merge is 123 x 471 values wide),
+               recall@471 against exact gt; ivf and sharded go through
+               save_index / load_index (onto cuda), ids at ef 64 on 2,048
+               queries bit-identical to the built index's.
+5. tune     -- the SLO autotuner on the 1M ivf and sharded indexes:
+               sweep_frontier over the whole nprobe ladder, to the
+               all-cells probe, on a 256-query view of the dataset (the
+               ivf search holds (queries, nprobe x cell_pad) slots at once,
+               ~41 bytes each at the sweep's peak: all 10,000 queries at
+               the all-cells probe would need ~1.3 TB); each rung's nprobe
+               as searched (the ladder's, raised to the floor of cells
+               that hold k vectors); recall must not fall along the
+               ladder and must reach 0.99 at the all-cells probe; then an
+               AnnsServer in SLO mode (RecallSLO(0.9)) serves 512
+               requests within 0.02 of its pick's swept recall.  Counters
+               as for main.
+6. ref20k   -- recall@10 of graph / quantized_prefilter / ivf / sharded
                (1, 2, 4 shards) at 20,000 vectors against the JAX package's
                numbers on the same data; sharded at 1 shard returns ivf's
                ids, ivf at the all-cells probe brute_force's; the optimized
-               (alpha-pruned) variant, and the CLI driver.
-6. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
+               (alpha-pruned) variant, and the serve CLI: each read-only
+               backend served with --save-index here and with --load-index
+               in a separate process at the same recall, --tune
+               --save-frontier then --load-frontier --target-recall 0.9,
+               and --filter-demo.
+7. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
                the 114M-parameter policy (fp32, full width and depth) samples
                GRPO groups of 6 programs, each built and swept on the engine
                at 5,000 x 128 and scored by the banded AUC, then takes a
@@ -277,6 +298,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels.distance import ops as dist_ops
     from repro_torch.kernels.distance.ref import distance_ref
     from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.kernels.topk import topk as topk_kernel
     from repro_torch.kernels.topk.ref import topk_smallest_ref
 
     dev = torch.device("cuda")
@@ -311,13 +333,23 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", **out["distance"]})
 
     # -- topk ---------------------------------------------------------------
+    def kernels_a_call(nx: int, k: int) -> int:
+        """One launch, or the step sort's one per step plus a merge per
+        halving of the runs."""
+        if k <= topk_kernel.K_WARP_MAX or nx <= topk_kernel.SORT_MAX_NX:
+            return 1
+        steps = -(-nx // topk_kernel.STEP_NX)
+        return 1 + (steps - 1).bit_length()
+
     def check_topk(dm: torch.Tensor, k: int) -> None:
         before = topk_ops.launches
         v, i = topk_ops.topk_smallest(dm, k)
         wv, wi = topk_smallest_ref(dm, k)
         torch.cuda.synchronize()
         where = f"{tuple(dm.shape)} k={k}"
-        check(topk_ops.launches == before + 1, f"topk: not one launch at {where}")
+        want = kernels_a_call(dm.shape[1], k)
+        check(topk_ops.launches == before + want,
+              f"topk: {topk_ops.launches - before} launches, not {want}, at {where}")
         check(torch.equal(i, wi), f"topk ids differ at {where}")
         # bit-equal values: NaN equals NaN, -0 stays -0
         check(torch.equal(v.view(torch.int32), wv.view(torch.int32)),
@@ -354,15 +386,23 @@ def phase_kernels() -> dict:
 
 #: topk against its plain version: (nq, nx, k), the main path's shapes
 #: among them (the brute_force chunk and its merge, the ivf coarse probe at
-#: ef 64 and at the all-cells probe, a k-means assignment)
+#: ef 64 and at the all-cells probe, a k-means assignment, the tune sweep's
+#: coarse probe of 256 queries over 1,569 cells at its widest rungs)
 TOPK_CHECKS = [(8, 128, 10), (5, 1000, 32), (16, 333, 100), (1, 50, 5),
                (9, 2048, 64), (64, 8192, 10), (64, 8192, 100), (64, 8192, 1),
                (64, 1230, 10), (4, 40000, 16), (64, 1569, 16),
                (64, 1569, 1569), (4096, 1024, 1), (3, 9000, 256),
-               (3, 9001, 257), (7, 4097, 1), (64, 123 * 300, 300)]
-#: the main path's topk shapes, timed: (nq, nx, k)
+               (3, 9001, 257), (7, 4097, 1), (64, 123 * 300, 300),
+               (64, 123 * 471, 471), (2, 100_000, 100_000),
+               (2, 40_000, 40_000), (256, 1569, 192), (256, 1569, 256),
+               (256, 1569, 1569)]
+#: the main path's topk shapes, timed: (nq, nx, k); then the step sort's
+#: (k > 256 past the row sort: brute_force merges at k 300 and 471, k = nx)
+#: and the tune sweep's coarse probe over the 1M layout's 1,569 cells
 TOPK_SHAPES = [(64, 8192, 10), (64, 1230, 10), (64, 1569, 16),
-               (64, 1569, 1569), (4096, 1024, 1)]
+               (64, 1569, 1569), (4096, 1024, 1), (64, 123 * 300, 300),
+               (2, 30_000, 30_000), (64, 123 * 471, 471),
+               (2, 100_000, 100_000), (256, 1569, 192), (256, 1569, 1569)]
 
 
 def topk_edge_cases(gen, dev) -> dict:
@@ -393,7 +433,7 @@ def topk_edge_cases(gen, dev) -> dict:
     nan = torch.full((2, 2000), float("nan"), device=dev)
     nan[:, 3], nan[:, 5] = 0.0, -0.0
     cases["mostly nan"] = (nan, 20)
-    # k = nx past the row sort's 28,672 values: the k rounds
+    # k = nx past the row sort's 28,672 values: the step sort
     cases["k = nx past the row sort"] = (
         torch.randn(2, 30_000, generator=gen, device=dev), 30_000)
     # a selective filter: 4 values a row below BIG, in a chunk and a merge
@@ -414,22 +454,24 @@ def mostly_big(gen, nq: int, nx: int, reps: int = 1) -> torch.Tensor:
 
 
 def topk_times(gen, plain: bool = False) -> dict:
-    """topk's device ms at each of TOPK_SHAPES over 50 distinct inputs,
-    beside torch.topk's and the bound (each value read once, k pairs
-    written; one compare a value); at the brute_force chunk also the plain
-    version and CUDA-event times."""
+    """topk's device ms at each of TOPK_SHAPES over 50 distinct inputs (20
+    at k = nx past the row sort), beside torch.topk's and the bound (each
+    value read once, k pairs written; one compare a value); at the
+    brute_force chunk also the plain version and CUDA-event times."""
     from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.kernels.topk.ref import topk_smallest_ref
     dev = torch.device("cuda")
-    reps, rows = 50, {}
+    rows = {}
     # the main path's shapes, and the brute_force chunk of a selective filter
     for nq, nx, k, big in [(*s, False) for s in TOPK_SHAPES] + [(64, 8192, 10, True)]:
+        reps = 20 if k > 20_000 else 50
         ds_ = (mostly_big(gen, nq, nx, reps) if big
                else torch.randn(reps, nq, nx, generator=gen, device=dev))
         args = [(ds_[r],) for r in range(reps)]
         kernel = (lambda a, k=k: topk_ops.topk_smallest(a, k))
         library = (lambda a, k=k: torch.topk(a, k, dim=1, largest=False))
         b_ms, b_by = bound(4.0 * nq * nx + 8.0 * nq * k, 1.0 * nq * nx)
+        name = f"{nq}x{nx}k{k}" + (" mostly BIG" if big else "")
         row = {"ms": device_ms(kernel, args), "library_ms": device_ms(library, args),
                "bound_ms": b_ms, "bound_by": b_by}
         if plain and (nq, nx, k, big) == (*TOPK_SHAPES[0], False):
@@ -438,7 +480,7 @@ def topk_times(gen, plain: bool = False) -> dict:
             row["per_call_event_ms"] = {
                 n: time_ms(f, args) for n, f in
                 (("kernel", kernel), ("plain", fn), ("library", library))}
-        rows[f"{nq}x{nx}k{k}" + (" mostly BIG" if big else "")] = row
+        rows[name] = row
         del ds_, args
     return rows
 
@@ -447,6 +489,11 @@ def topk_times(gen, plain: bool = False) -> dict:
 #: 2,048-wide cell table over 1,024 cells (sizes uniform in [0, 2048])
 SCAN_SHAPE = {"B": 64, "nprobe": 16, "nlist": 1024, "pad": 2048, "d": 128}
 QDIST_TOL = {"rtol": 1e-4, "atol": 2e-3}
+#: the tune sweep's scan: 256 queries over the 1M layout's 1,569 cells at
+#: its widest rungs, 256 cells and every cell; the queries held against the
+#: plain gather (about 4 GB a query at every cell)
+SWEEP_SCAN = {"B": 256, "nlist": 1569, "pad": 2048, "d": 128,
+              "nprobe": (256, 1569), "checked": (0, 1, 128, 255)}
 #: qdist all pairs against its plain version: the reference's shapes
 #: (tests/test_kernels.py), ragged d, and the brute-force chunk: (nq, nx, d)
 QDIST_SHAPES = [(16, 256, 128), (7, 300, 25), (64, 128, 960), (64, 8192, 128)]
@@ -461,6 +508,44 @@ def cell_table(gen, nlist: int, pad: int):
     t = torch.arange(pad, device=dev)
     cells = torch.where(t[None, :] < sizes[:, None], offsets[:, None] + t, -1)
     return cells.to(torch.int32).contiguous(), int(sizes.sum()), sizes
+
+
+def check_sweep_scan(gen) -> float:
+    """The cell scan at SWEEP_SCAN's shapes, launched for the whole batch;
+    each probe a query's own permutation of the cells, as the coarse
+    top-k gives them, and on odd queries the odd cells -1, as a shard of
+    two sees the other's.  Returns the largest error of a live slot."""
+    from repro_torch.kernels.qdist import ops as qdist_ops
+    from repro_torch.kernels.qdist.ref import BIG, qdist_cells_ref
+
+    dev = torch.device("cuda")
+    B, nlist, pad, d = (SWEEP_SCAN[k] for k in ("B", "nlist", "pad", "d"))
+    cells, n, _ = cell_table(gen, nlist, pad)
+    xq, s = qdist_ops.quantize_int8(torch.randn(n, d, generator=gen, device=dev))
+    err = 0.0
+    for nprobe in SWEEP_SCAN["nprobe"]:
+        perm = torch.argsort(torch.rand(B, nlist, generator=gen, device=dev), dim=1)
+        rows = perm[:, :nprobe].to(torch.int32)
+        rows[1::2][rows[1::2] % 2 == 1] = -1
+        q = torch.randn(B, d, generator=gen, device=dev)
+        for metric in ("l2", "ip"):
+            got = qdist_ops.quantized_cell_scan(q, xq, s, cells, rows,
+                                                metric=metric)
+            for b in SWEEP_SCAN["checked"]:
+                want = qdist_cells_ref(q[b:b + 1], xq, s, cells,
+                                       rows[b:b + 1], metric)[0]
+                torch.cuda.synchronize()
+                dead = want == BIG
+                check(torch.equal(got[b][dead], want[dead]),
+                      f"qdist cell scan at nprobe {nprobe}, query {b}: "
+                      "a -1 slot is not exactly BIG")
+                torch.testing.assert_close(got[b][~dead], want[~dead], **QDIST_TOL)
+                err = max(err, float((got[b][~dead] - want[~dead]).abs().max()))
+                del want, dead
+            del got
+            torch.cuda.empty_cache()
+    del cells, xq, s
+    return err
 
 
 def kernel_qdist(gen) -> dict:
@@ -510,6 +595,7 @@ def kernel_qdist(gen) -> dict:
         scan_err = max(scan_err, float((got[~dead] - want[~dead]).abs().max()))
         del got, want, dead
     torch.cuda.empty_cache()
+    scan_err = max(scan_err, check_sweep_scan(gen))
 
     # timed: all pairs at (64 x 8192 x 128), 50 distinct int8 tables
     nq, nx, reps = 64, 8192, 50
@@ -686,15 +772,18 @@ def kernel_flash(gen) -> dict:
 # 4. the main path at SIFT1M scale
 # ---------------------------------------------------------------------------
 def serve_requests(backend, queries, gt, *, n_requests: int, ef: int,
-                   k: int = 10, max_batch: int = 64) -> dict:
-    """Closed-loop serving through AnnsServer: windows of ``max_batch``
-    requests, each submitted then flushed."""
+                   k: int = 10, max_batch: int = 64, server=None) -> dict:
+    """Closed-loop serving through AnnsServer (``server``, or one at k and
+    ef): windows of ``max_batch`` requests, each submitted then
+    flushed."""
     from repro_torch.anns import SearchParams
     from repro_torch.anns.datasets import recall_at_k
     from repro_torch.runtime.server import AnnsServer
 
-    server = AnnsServer(backend, max_batch=max_batch,
-                        params=SearchParams(k=k, ef=ef))
+    if server is None:
+        server = AnnsServer(backend, max_batch=max_batch,
+                            params=SearchParams(k=k, ef=ef))
+    k, ef, max_batch = server.params.k, server.params.ef, server.max_batch
     order = np.random.default_rng(0).integers(0, len(queries), size=n_requests)
     responses = []
     torch.cuda.synchronize()
@@ -775,9 +864,66 @@ def all_cells_recall(backend, ds, n: int = 64) -> dict:
             "recall@10": rec}
 
 
-def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
+def serve_k471(backend, ds, counters, n: int = 256) -> dict:
+    """brute_force at k = 471: each batch merges 123 chunks' 471 winners
+    (57,933 values a row, past the 57,856 the topk kernel once held);
+    recall@471 over 512 requests against exact gt of ``n`` queries, from
+    the plain matmul-form oracle on the card."""
+    from repro_torch.anns.datasets import exact_ground_truth
+    q = ds.queries[:n]
+    t0 = time.perf_counter()
+    gt = exact_ground_truth(ds.base, q, 471, ds.metric, device="cuda")
+    gt_s = time.perf_counter() - t0
+    zero_counts(counters)
+    out = serve_requests(backend, q, gt, n_requests=512, ef=64, k=471)
+    out["launches"] = read_counts(counters)
+    out["gt_seconds"] = gt_s
+    check(out["recall@471"] >= 0.999,
+          f"brute_force recall@471 {out['recall@471']} < 0.999")
+    check(out["launches"]["topk"] > 0, "k 471: no topk launch")
+    return out
+
+
+def index_round_trip(backend, ds, n: int = 2048) -> dict:
+    """save_index to a temporary directory under build/, load_index onto
+    the card (its default device): ids at ef 64 on ``n`` queries
+    bit-identical to the built index's; bytes on disk, save and load
+    seconds."""
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch.anns import SearchParams
+    params = SearchParams(k=10, ef=64)
+    q = ds.queries[:n]
+    want = backend.search(q, params).ids
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, backend.name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_index(path, backend)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        t0 = time.perf_counter()
+        loaded = ckpt.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    got = loaded.search(q, params).ids
+    check(loaded.device.type == "cuda" and loaded.name == backend.name,
+          f"load_index gave {loaded.name} on {loaded.device}")
+    check(torch.equal(got, want),
+          f"{backend.name}: ids after save_index / load_index differ on "
+          f"{int((got != want).any(1).sum())} of {n} queries")
+    return {"bytes_on_disk": disk, "save_s": save_s, "load_s": load_s,
+            "queries": n, "ids_equal": True,
+            "device_bytes": loaded.memory_bytes()}
+
+
+def phase_main(n_base: int, n_query: int, n_requests: int):
     """Serve every backend at SIFT1M scale; returns the kernels' launches
-    of each backend's serving runs, by path."""
+    of each backend's serving runs, by path, the dataset, and the built
+    ivf and sharded backends (the tune phase sweeps them)."""
     import dataclasses
 
     from repro_torch.anns import make_dataset, registry
@@ -798,7 +944,7 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
     variants["sharded"] = dataclasses.replace(ivf, backend="sharded",
                                               n_shards=2)
     counters = kernel_counters()
-    launches = {}
+    launches, kept = {}, {}
     for name, variant in variants.items():
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -818,6 +964,9 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
             row["all_cells"] = all_cells_recall(backend, ds)
         elif name == "sharded":
             row["layout"] = backend.stats()
+        if name in ("ivf", "sharded"):
+            row["round_trip"] = index_round_trip(backend, ds)
+            kept[name] = backend
         efs = (64,) if name in ("brute_force", "quantized_prefilter") \
             else (16, 64, 256)
         runs = []
@@ -827,6 +976,9 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
                                        n_requests=n_requests, ef=ef))
             runs[-1]["launches"] = read_counts(counters)
         row["runs"] = runs
+        if name == "brute_force":
+            row["k471"] = serve_k471(backend, ds, counters)
+            launches["serve.brute_force_k471"] = row["k471"]["launches"]
         row["trace_ef64"] = busy_share(backend, ds.queries, ds.gt, ef=64)
         emit(row)
         served = next(r for r in runs if r["ef"] == 64)
@@ -851,11 +1003,92 @@ def phase_main(n_base: int, n_query: int, n_requests: int) -> dict:
                   f"{name} recall falls as ef grows: {rec}")
         del backend
         torch.cuda.empty_cache()
+    return launches, ds, kept
+
+
+# ---------------------------------------------------------------------------
+# 5. the SLO autotuner on the 1M indexes
+# ---------------------------------------------------------------------------
+#: queries of the tune sweep's view of the dataset (see the docstring)
+TUNE_QUERIES = 256
+
+
+def phase_tune(ds, targets: dict) -> dict:
+    """sweep_frontier over the built 1M ivf and sharded backends, every
+    rung of their nprobe ladders; then an SLO-mode server.  Returns the
+    kernels' launches of the sweep and the SLO serving."""
+    import dataclasses
+
+    from repro_torch.anns import tune
+    from repro_torch.anns.backends.ivf import _probe_floor_nprobe
+    from repro_torch.anns.bench import measure_point
+    from repro_torch.runtime.server import AnnsServer
+
+    view = dataclasses.replace(ds, queries=ds.queries[:TUNE_QUERIES],
+                               gt=ds.gt[:TUNE_QUERIES])
+    raw = {name: [] for name in targets}
+
+    def measure(target, ds_, params, repeats, build_seconds):
+        p = measure_point(target, ds_, params=params, repeats=repeats,
+                          build_seconds=build_seconds)
+        idx = target.index
+        raw[target.name].append({
+            "ef": params.ef, "nprobe": _probe_floor_nprobe(
+                idx, target.variant, params, min(params.k, idx.n)),
+            "recall@10": p.recall, "qps": p.qps, "p50_ms": p.p50_ms,
+            "device_memory_bytes": p.device_memory_bytes})
+        return p
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    frontier = tune.sweep_frontier(view, backends=(),
+                                   targets=list(targets.values()), k=10,
+                                   repeats=1, measure_fn=measure)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for name, rungs in raw.items():
+        rec = [r["recall@10"] for r in rungs]
+        check(all(b >= a - 0.01 for a, b in zip(rec, rec[1:])),
+              f"tune: {name} recall falls along the nprobe ladder: {rec}")
+        check(rungs[-1]["nprobe"] == targets[name].index.nlist
+              and rec[-1] >= 0.99,
+              f"tune: {name} at the all-cells probe {rungs[-1]}")
+    slo = tune.RecallSLO(0.9)
+    pick = tune.choose(frontier, slo)
+    server = AnnsServer(targets[pick.backend], max_batch=64, slo=slo,
+                        frontier=frontier)
+    served = serve_requests(None, view.queries, view.gt, n_requests=512,
+                            ef=0, server=server)
+    launches = read_counts(counters)
+    check(abs(served["recall@10"] - server.operating_point.recall) <= 0.02,
+          f"tune: SLO server recall {served['recall@10']} vs its pick's "
+          f"swept {server.operating_point.recall}")
+    for kname in ("distance", "topk", "qdist"):
+        check(launches[kname] > 0, f"tune: no {kname} launch: {launches}")
+    emit({"phase": "tune", "queries": TUNE_QUERIES, "sweep_s": sweep_s,
+          "sweep_peak_device_bytes": peak,
+          "device_bytes_before_sweep": base_bytes,
+          "rungs": raw, "frontier_size": len(frontier.points),
+          "frontier": [{"backend": p.backend, "ef": p.params.ef,
+                        "recall@10": p.recall, "qps": p.qps,
+                        "p50_ms": p.p50_ms,
+                        "device_memory_bytes": p.device_memory_bytes}
+                       for p in frontier.points],
+          "slo": slo.describe(),
+          "pick": {"backend": pick.backend, "ef": server.params.ef,
+                   "recall@10": server.operating_point.recall,
+                   "qps": server.operating_point.qps},
+          "served": served, "launches": launches})
     return launches
 
 
 # ---------------------------------------------------------------------------
-# 5. the reference point at 20k, the optimized variant, the CLI driver
+# 6. the reference point at 20k, the optimized variant, the CLI driver
 # ---------------------------------------------------------------------------
 def phase_ref20k() -> None:
     import dataclasses
@@ -935,16 +1168,90 @@ def phase_ref20k() -> None:
         del backend
     del exact
 
-    rec = serve.main(["--n-base", "20000", "--n-query", "256",
-                      "--n-requests", "512", "--backend", "brute_force"])
-    check(rec >= 0.999, f"serve CLI brute_force recall {rec}")
-    emit({"phase": "ref20k.cli", "backend": "brute_force", "recall@10": rec})
-    for argv in (["--backend", "ivf", "--nlist", "128"],
-                 ["--backend", "sharded", "--nlist", "128", "--n-shards", "2"]):
-        rec = serve.main(["--n-base", "20000", "--n-query", "256",
-                          "--n-requests", "512", *argv])
-        check(np.isfinite(rec) and rec > 0.5, f"serve CLI {argv}: recall {rec}")
-        emit({"phase": "ref20k.cli", "argv": argv, "recall@10": rec})
+    cli_round_trips(serve)
+
+
+#: the serve CLI's 20k deployments: (label, flags)
+CLI_20K = [("graph", ["--backend", "graph"]),
+           ("brute_force", ["--backend", "brute_force"]),
+           ("quantized_prefilter", ["--backend", "quantized_prefilter"]),
+           ("ivf", ["--backend", "ivf", "--nlist", "128"]),
+           ("sharded-2", ["--backend", "sharded", "--nlist", "128",
+                          "--n-shards", "2"])]
+
+
+def cli_round_trips(serve) -> None:
+    """The serve CLI at 20k: each backend built and served with
+    --save-index here, then served with --load-index by a separate
+    process each (all started together), at the same recall; --tune
+    --save-frontier then --load-frontier --target-recall 0.9; and
+    --filter-demo on ivf."""
+    import re
+    import tempfile
+
+    data = ["--n-base", "20000", "--n-query", "256", "--n-requests", "512"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        built, procs = {}, {}
+        for label, flags in CLI_20K:
+            t0 = time.perf_counter()
+            built[label] = serve.main([*data, *flags, "--save-index",
+                                       os.path.join(tmp, label)])
+            built[label] = (built[label], time.perf_counter() - t0)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        for label, _ in CLI_20K:
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", *data,
+                 "--load-index", os.path.join(tmp, label)],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for label, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"serve --load-index {label}: exit "
+                  f"{p.returncode}\n{err[-3000:]}")
+            m = re.search(r"recall@10=([\d.]+)", out)
+            rec, build_s = built[label]
+            row = {"phase": "ref20k.cli", "backend": label,
+                   "recall@10": rec, "build_and_serve_s": build_s,
+                   "loaded_recall@10": m and m.group(1),
+                   "restored": [ln for ln in out.splitlines()
+                                if ln.startswith("restored")]}
+            check(m is not None and m.group(1) == f"{rec:.3f}",
+                  f"serve --load-index {label} in a separate process gave "
+                  f"{row['loaded_recall@10']}, the build process {rec:.3f}")
+            if label == "brute_force":
+                check(rec >= 0.999, f"serve CLI brute_force recall {rec}")
+            else:
+                check(np.isfinite(rec) and rec > 0.5,
+                      f"serve CLI {label}: recall {rec}")
+            emit(row)
+        emit({"phase": "ref20k.cli_loads", "processes": len(procs),
+              "seconds": time.perf_counter() - t0})
+
+        fpath = os.path.join(tmp, "frontier.json")
+        ivf = CLI_20K[3][1]
+        t0 = time.perf_counter()
+        serve.main([*data, *ivf, "--tune", "--save-frontier", fpath])
+        tune_s = time.perf_counter() - t0
+        from repro_torch import ckpt
+        from repro_torch.anns import tune
+        frontier = ckpt.load_frontier(fpath)
+        pick = tune.choose(frontier, tune.RecallSLO(0.9), backend="ivf")
+        rec = serve.main([*data, *ivf, "--load-frontier", fpath,
+                          "--target-recall", "0.9"])
+        check(abs(rec - pick.recall) <= 0.02,
+              f"serve --target-recall 0.9: recall {rec} vs the pick's "
+              f"swept {pick.recall}")
+        emit({"phase": "ref20k.cli_tune", "tune_s": tune_s,
+              "frontier_points": len(frontier.points),
+              "pick_ef": pick.params.ef, "pick_recall@10": pick.recall,
+              "served_recall@10": rec})
+    demo = serve.main([*data, *ivf, "--filter-demo"])
+    check(len(demo) == 4 and all(0.0 <= r <= 1.0 for r in demo.values())
+          and demo[1.0] > 0.5, f"serve --filter-demo: {demo}")
+    emit({"phase": "ref20k.cli_filter_demo",
+          "recall@10_by_selectivity": {str(k): v for k, v in demo.items()}})
 
 
 def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
@@ -969,7 +1276,7 @@ def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. the CRINN RL loop
+# 7. the CRINN RL loop
 # ---------------------------------------------------------------------------
 RL_ITERS = 2
 KL_ROUNDING = 1e-6
@@ -1201,7 +1508,11 @@ def main() -> None:
     phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_main(n_base=1_000_000, n_query=10_000, n_requests=2048)
+    launches, ds, kept = phase_main(n_base=1_000_000, n_query=10_000,
+                                    n_requests=2048)
+    launches["tune"] = phase_tune(ds, kept)
+    del ds, kept
+    torch.cuda.empty_cache()
     phase_ref20k()
     launches["rl"] = phase_rl()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
@@ -1222,7 +1533,8 @@ def main() -> None:
 
 
 #: ``--kernel-times NAME``: the kernels whose timing runs alone
-KERNEL_TIMES = {"distance": distance_times, "topk": topk_times}
+KERNEL_TIMES = {"distance": distance_times,
+                "topk": topk_times}
 
 
 def kernel_times_main(args: list) -> None:

@@ -167,6 +167,11 @@ def parse_filter(text: str) -> FilterPredicate:
     return FilterPredicate.parse(text)
 
 
+def describe_filter(predicate) -> str:
+    """Canonical string of a predicate, '' for None (serialization)."""
+    return "" if predicate is None else predicate.describe()
+
+
 def require_filterable(predicate, attributes) -> None:
     """Fail fast (typed) when ``predicate`` cannot run against a backend
     holding ``attributes`` — the submit-time check of the serving tier:

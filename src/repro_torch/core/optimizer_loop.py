@@ -71,7 +71,8 @@ class CrinnOptimizer:
 
     def __init__(self, policy: Policy, ds: Dataset, loop: LoopConfig,
                  gcfg: GRPOConfig | None = None,
-                 opt_cfg: AdamWConfig | None = None):
+                 opt_cfg: AdamWConfig | None = None,
+                 frontier=None):
         self.policy = policy
         self.device = policy.device
         self.ds = ds
@@ -90,6 +91,11 @@ class CrinnOptimizer:
         # paper-faithful starting point: GLASS baseline, reward 1.0
         self.current = GLASS_BASELINE
         self.baselines = FamilyBaselines()
+        if frontier is not None:
+            # a swept Pareto frontier (repro_torch.anns.tune /
+            # ckpt.load_frontier) pre-fills the per-family baseline bank,
+            # so a family's first candidate skips its baseline sweep
+            self.baselines.seed_from_frontier(frontier)
 
     @property
     def baseline_auc(self) -> float:

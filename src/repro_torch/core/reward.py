@@ -129,8 +129,8 @@ class FamilyBaselines:
                            hi: float = RECALL_HI,
                            overwrite: bool = False) -> dict:
         """Fill the bank from an already-swept Pareto frontier
-        (the reference's ``repro.anns.tune``; any object with ``.points``) instead of re-measuring each family's
-        baseline on first contact.
+        (``repro_torch.anns.tune``; any object with ``.points``) instead of
+        re-measuring each family's baseline on first contact.
 
         Each family's banded AUC is integrated over its frontier points
         (``.backend``/``.recall``/``.qps`` rows — duck-typed, this module

@@ -22,7 +22,8 @@
 // row's loads, then every step that depends on another.  So the select
 // and the row sort keep that chain short: neither waits on a serial round.
 //
-// One launch per call, one of four kernels chosen on the host by k and nx:
+// One call launches one of four kernels, chosen on the host by k and nx
+// (the step sort also its merge rounds):
 //
 // * 2 <= k <= K_WARP_MAX (256): the threshold select.  A row gets W warps
 //   (a power of two, at most WARPS = 8, one per CHUNK = 1,024 values), a
@@ -57,15 +58,23 @@
 //   sorts them with the same virtually padded bitonic network.
 //
 // * k > K_WARP_MAX, nx > SORT_MAX_NX (a brute-force merge of 123 chunks at
-//   k = 300, an all-cells probe over more than 28,672 cells): k rounds of
-//   a block-wide argmin over the row's keys staged in shared memory, the
-//   taken slot marked above every key.  Rows up to ROUND_MAX_NX = 57,856
-//   fit (226 KB); kernels/topk/ops.py raises above that for this range
-//   only.
+//   k = 471, an all-cells probe over more than 28,672 cells): the step sort,
+//   no row limit.  The row is cut into steps of STEP_NX = 8,192 values; one
+//   block a (row, step) sorts the step's words in shared memory with the
+//   row sort's network and keeps its min(k, step) smallest in a workspace
+//   the op allocates, (2, nq, steps, min(k, STEP_NX)) words.  Then
+//   ceil(log2(steps)) merge rounds, one launch each, halve the runs of
+//   every row: each word of a pair of sorted runs goes to its place in the
+//   merged order (its index in its run plus the count of the other run's
+//   words below it, by binary search; the words are distinct), and the
+//   words placed at k or past are dropped.  The last round writes vals and
+//   idx.  The words carry the column, so ties go to the lowest column
+//   across a step's edge with no extra step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <climits>
 
 namespace {
@@ -79,8 +88,8 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int K_WARP_MAX = 256;             // largest k of the threshold select
 constexpr int SORT_THREADS = 1024;
 constexpr int SORT_MAX_NX = 28672;          // 224 KB of 64-bit words
-constexpr int ROUND_MAX_NX = 57856;         // 226 KB of 32-bit keys
-constexpr uint32_t TAKEN = 0xFFFFFFFFu;     // above every real key
+constexpr int STEP_NX = 8192;               // values of a step of the step sort
+constexpr int MERGE_THREADS = 256;
 constexpr uint32_t NAN_KEY = 0xFFFFFFFEu;   // above +inf
 constexpr uint32_t PAD_KEY = 0xFFFFFFFFu;   // no value
 constexpr u64 NONE = ~0ull;                 // above every real word
@@ -444,23 +453,19 @@ __device__ __forceinline__ void write_row(const u64* list, const float* row,
     }
 }
 
-__global__ void __launch_bounds__(SORT_THREADS)
-topk_sort_kernel(const float* __restrict__ d, float* __restrict__ vals,
-                 int* __restrict__ idx, int nx, int k) {
-    extern __shared__ u64 s[];              // the row's nx words
-    const float* r = d + (size_t)blockIdx.x * nx;
-    for (int i = threadIdx.x; i < nx; i += SORT_THREADS) s[i] = pack(r[i], i);
-    __syncthreads();
+// Sort s[0, n) ascending in place, all threads of the block: a bitonic
+// network over the next power of two in which every comparator puts the
+// smaller word at the lower place, so the virtual padding past n (above
+// every word) never moves.
+__device__ void block_sort(u64* s, int n) {
     int p2 = 1;
-    while (p2 < nx) p2 <<= 1;
-    // every comparator puts the smaller word at the lower place, so the
-    // virtual padding past nx (above every word) never moves
+    while (p2 < n) p2 <<= 1;
     for (int size = 2; size <= p2; size <<= 1) {
         const int half = size >> 1;
-        for (int t = threadIdx.x; t < p2 / 2; t += SORT_THREADS) {
+        for (int t = threadIdx.x; t < p2 / 2; t += blockDim.x) {
             const int blk = t / half, off = t % half;
             const int i = blk * size + off, j = blk * size + size - 1 - off;
-            if (j < nx && s[j] < s[i]) {
+            if (j < n && s[j] < s[i]) {
                 const u64 a = s[i];
                 s[i] = s[j];
                 s[j] = a;
@@ -468,9 +473,9 @@ topk_sort_kernel(const float* __restrict__ d, float* __restrict__ vals,
         }
         __syncthreads();
         for (int stride = half >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < p2 / 2; t += SORT_THREADS) {
+            for (int t = threadIdx.x; t < p2 / 2; t += blockDim.x) {
                 const int i = 2 * t - (t & (stride - 1)), j = i + stride;
-                if (j < nx && s[j] < s[i]) {
+                if (j < n && s[j] < s[i]) {
                     const u64 a = s[i];
                     s[i] = s[j];
                     s[j] = a;
@@ -479,53 +484,85 @@ topk_sort_kernel(const float* __restrict__ d, float* __restrict__ vals,
             __syncthreads();
         }
     }
+}
+
+__global__ void __launch_bounds__(SORT_THREADS)
+topk_sort_kernel(const float* __restrict__ d, float* __restrict__ vals,
+                 int* __restrict__ idx, int nx, int k) {
+    extern __shared__ u64 s[];              // the row's nx words
+    const float* r = d + (size_t)blockIdx.x * nx;
+    for (int i = threadIdx.x; i < nx; i += SORT_THREADS) s[i] = pack(r[i], i);
+    __syncthreads();
+    block_sort(s, nx);
     write_row(s, r, vals + (size_t)blockIdx.x * k, idx + (size_t)blockIdx.x * k, k);
 }
 
-// k > K_WARP_MAX on rows past SORT_MAX_NX: k rounds.  The block stages
-// the row's keys in shared memory; each thread keeps the least word of its
-// strided slots, a round reduces them across the block, writes the winner
-// and marks its slot taken, and only the thread that held it rescans.
-__global__ void __launch_bounds__(THREADS)
-topk_rounds_kernel(const float* __restrict__ d, float* __restrict__ vals,
-                   int* __restrict__ idx, int nx, int k) {
-    extern __shared__ uint32_t keys[];      // the row's nx keys
-    __shared__ u64 warp_best[WARPS];
-    __shared__ u64 winner;
-    const float* r = d + (size_t)blockIdx.x * nx;
-    for (int i = threadIdx.x; i < nx; i += THREADS) keys[i] = float_key(r[i]);
+// The step sort's first pass: block (row, step) sorts the step's words and
+// keeps the min(k, step) smallest as run `step` of the row in `runs`
+// (a row's runs are steps * min(k, STEP_NX) words apart).
+__global__ void __launch_bounds__(SORT_THREADS)
+topk_step_kernel(const float* __restrict__ d, u64* __restrict__ runs,
+                 int nx, int k, int steps) {
+    extern __shared__ u64 s[];              // the step's words
+    const int row = blockIdx.x / steps, st = blockIdx.x % steps;
+    const int lo = st * STEP_NX, n = min(STEP_NX, nx - lo);
+    const float* r = d + (size_t)row * nx + lo;
+    for (int i = threadIdx.x; i < n; i += SORT_THREADS) s[i] = pack(r[i], lo + i);
     __syncthreads();
-    auto scan_min = [&]() {
-        u64 b = NONE;
-        for (int i = threadIdx.x; i < nx; i += THREADS) {
-            const u64 w = (static_cast<u64>(keys[i]) << 32) | static_cast<uint32_t>(i);
-            b = w < b ? w : b;
-        }
-        return b;
+    block_sort(s, n);
+    const int kk = min(k, STEP_NX);
+    u64* out = runs + ((size_t)row * steps + st) * kk;
+    for (int i = threadIdx.x; i < min(k, n); i += SORT_THREADS) out[i] = s[i];
+}
+
+// Words of a[0, n) (sorted, distinct) below w.
+__device__ __forceinline__ int count_below(const u64* a, int n, u64 w) {
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] < w) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
+// Round r of the step sort's merge.  Run i of a row in round r covers the
+// columns [i * span, (i + 1) * span) cut at nx, span = STEP_NX << r, and
+// holds their min(k, columns) smallest words, sorted, at i * (kk << r) of
+// the row's part of src.  Block (row, pair p) merges runs 2p and 2p + 1
+// into run p of round r + 1 in dst (a run without a partner is copied) or,
+// at the last round (vals != nullptr), into vals and idx.
+__global__ void __launch_bounds__(MERGE_THREADS)
+topk_merge_kernel(const float* __restrict__ d, const u64* __restrict__ src,
+                  u64* __restrict__ dst, float* __restrict__ vals,
+                  int* __restrict__ idx, int nx, int k, int steps, int r,
+                  int pairs) {
+    const int row = blockIdx.x / pairs, p = blockIdx.x % pairs;
+    const int kk = min(k, STEP_NX);
+    const long long span = (long long)STEP_NX << r;
+    auto run_len = [&](long long c0) {
+        const long long c = min((long long)nx, c0 + span) - c0;
+        return c <= 0 ? 0 : static_cast<int>(min((long long)k, c));
     };
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    u64 mine = scan_min();
-    for (int j = 0; j < k; ++j) {
-        u64 b = mine;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const u64 y = __shfl_down_sync(0xFFFFFFFFu, b, o);
-            b = y < b ? y : b;
+    const int la = run_len(2 * p * span), lb = run_len((2 * p + 1) * span);
+    const size_t stride = (size_t)steps * kk;         // a row's words in a buffer
+    const u64* A = src + row * stride + (size_t)(2 * p) * ((size_t)kk << r);
+    const u64* B = A + ((size_t)kk << r);
+    u64* out = dst + row * stride + (size_t)p * ((size_t)kk << (r + 1));
+    const int m = min(k, la + lb);
+    for (int e = blockIdx.y * MERGE_THREADS + threadIdx.x; e < la + lb;
+         e += gridDim.y * MERGE_THREADS) {
+        const bool in_a = e < la;
+        const u64 w = in_a ? A[e] : B[e - la];
+        const int pos = in_a ? e + count_below(B, lb, w)
+                             : e - la + count_below(A, la, w);
+        if (pos >= m) continue;
+        if (vals != nullptr) {
+            const int col = static_cast<int>(static_cast<uint32_t>(w));
+            vals[(size_t)row * k + pos] = d[(size_t)row * nx + col];
+            idx[(size_t)row * k + pos] = col;
+        } else {
+            out[pos] = w;
         }
-        if (lane == 0) warp_best[warp] = b;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            for (int w = 1; w < WARPS; ++w) b = warp_best[w] < b ? warp_best[w] : b;
-            const int col = static_cast<int>(static_cast<uint32_t>(b));
-            vals[(size_t)blockIdx.x * k + j] = r[col];
-            idx[(size_t)blockIdx.x * k + j] = col;
-            keys[col] = TAKEN;
-            winner = b;
-        }
-        __syncthreads();
-        // winner and keys change again only after the next round's first
-        // barrier, which every thread reaches after this
-        if (mine == winner) mine = scan_min();
     }
 }
 
@@ -542,26 +579,59 @@ cudaError_t opt_in(const void* fn, int bytes, int variant) {
     return e;
 }
 
+// The error of a single launch just made; *launched = 1 if there is none.
+int one_launch(int* launched) {
+    const cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess) *launched = 1;
+    return static_cast<int>(e);
+}
+
 }  // namespace
 
 // d (nq, nx) fp32 row-major -> vals (nq, k) fp32, idx (nq, k) int32.
-// Needs 1 <= k <= nx, and nx <= ROUND_MAX_NX where k > K_WARP_MAX.
+// Needs 1 <= k <= nx.  Where k > K_WARP_MAX and nx > SORT_MAX_NX, ws holds
+// 2 * nq * ceil(nx / STEP_NX) * min(k, STEP_NX) 64-bit words (the step
+// sort's two run buffers); it is not read otherwise.  *launched is set to
+// the kernels enqueued: 1, or the step sort's 1 + ceil(log2 steps).
 // Returns cudaGetLastError() (0 = success).
 extern "C" int topk_launch(const void* d, void* vals, void* idx, int nq,
-                           int nx, int k, void* stream) {
+                           int nx, int k, void* ws, void* stream,
+                           int* launched) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    *launched = 0;
     const float* dp = static_cast<const float*>(d);
     float* vp = static_cast<float*>(vals);
     int* ip = static_cast<int*>(idx);
     if (k > K_WARP_MAX && nx > SORT_MAX_NX) {
-        if (nx > ROUND_MAX_NX) return static_cast<int>(cudaErrorInvalidValue);
+        const int steps = (nx + STEP_NX - 1) / STEP_NX;
+        const int kk = k < STEP_NX ? k : STEP_NX;
+        u64* buf[2] = {static_cast<u64*>(ws),
+                       static_cast<u64*>(ws) + (size_t)nq * steps * kk};
         const cudaError_t opted = opt_in(
-            (const void*)topk_rounds_kernel,
-            ROUND_MAX_NX * static_cast<int>(sizeof(uint32_t)), 3);
+            (const void*)topk_step_kernel,
+            STEP_NX * static_cast<int>(sizeof(u64)), 3);
         if (opted != cudaSuccess) return static_cast<int>(opted);
-        topk_rounds_kernel<<<nq, THREADS, (size_t)nx * sizeof(uint32_t), st>>>(
-            dp, vp, ip, nx, k);
-        return static_cast<int>(cudaGetLastError());
+        topk_step_kernel<<<(unsigned)nq * steps, SORT_THREADS,
+                           (size_t)STEP_NX * sizeof(u64), st>>>(dp, buf[0], nx, k, steps);
+        cudaError_t e = cudaGetLastError();
+        if (e == cudaSuccess) *launched = 1;
+        int rounds = 0;
+        while ((1 << rounds) < steps) ++rounds;
+        for (int r = 0; r < rounds && e == cudaSuccess; ++r) {
+            const int runs = (steps + (1 << r) - 1) >> r, pairs = (runs + 1) / 2;
+            // a block's words: two runs of at most min(k, span) each
+            const long long span = (long long)STEP_NX << r;
+            const long long most = 2 * (span < k ? span : (long long)k);
+            const unsigned ey = (unsigned)std::min<long long>(
+                65535, (most + MERGE_THREADS - 1) / MERGE_THREADS);
+            const bool last = r == rounds - 1;
+            topk_merge_kernel<<<dim3((unsigned)nq * pairs, ey), MERGE_THREADS, 0, st>>>(
+                dp, buf[r % 2], buf[(r + 1) % 2], last ? vp : nullptr,
+                last ? ip : nullptr, nx, k, steps, r, pairs);
+            e = cudaGetLastError();
+            if (e == cudaSuccess) ++*launched;
+        }
+        return static_cast<int>(e);
     }
     if (k > K_WARP_MAX) {
         const cudaError_t opted = opt_in(
@@ -570,7 +640,7 @@ extern "C" int topk_launch(const void* d, void* vals, void* idx, int nq,
         if (opted != cudaSuccess) return static_cast<int>(opted);
         topk_sort_kernel<<<nq, SORT_THREADS, (size_t)nx * sizeof(u64), st>>>(
             dp, vp, ip, nx, k);
-        return static_cast<int>(cudaGetLastError());
+        return one_launch(launched);
     }
     // warps a row: a power of two, at most WARPS, at least a step each
     int W = 1;
@@ -583,7 +653,7 @@ extern "C" int topk_launch(const void* d, void* vals, void* idx, int nq,
             topk_min_kernel<true><<<blocks, THREADS, 0, st>>>(dp, vp, ip, nq, nx, W);
         else
             topk_min_kernel<false><<<blocks, THREADS, 0, st>>>(dp, vp, ip, nq, nx, W);
-        return static_cast<int>(cudaGetLastError());
+        return one_launch(launched);
     }
     const size_t smem = sizeof(u64) * (size_t)rows * (k + W * CHUNK + k);
     const void* fn = vec ? (const void*)topk_select_kernel<true>
@@ -594,7 +664,7 @@ extern "C" int topk_launch(const void* d, void* vals, void* idx, int nq,
         topk_select_kernel<true><<<blocks, THREADS, smem, st>>>(dp, vp, ip, nq, nx, k, W);
     else
         topk_select_kernel<false><<<blocks, THREADS, smem, st>>>(dp, vp, ip, nq, nx, k, W);
-    return static_cast<int>(cudaGetLastError());
+    return one_launch(launched);
 }
 
 // Text of a cudaError_t returned above.

@@ -8,7 +8,8 @@ from repro_torch.kernels.common import check_matrix
 from repro_torch.kernels.topk import topk as _kernel
 from repro_torch.kernels.topk.ref import topk_smallest_ref
 
-#: kernel launches since the count was last set to 0 (CPU calls not counted)
+#: kernel launches since the count was last set to 0 (CPU calls not counted;
+#: a step-sort call launches 1 + ceil(log2 steps) kernels)
 launches = 0
 
 
@@ -25,14 +26,11 @@ def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         return topk_smallest_ref(d, k)
     if d.device.type != "cuda":
         raise ValueError(f"no topk kernel for device {d.device}")
-    if k > _kernel.K_WARP_MAX and nx > _kernel.ROUND_MAX_NX:
-        raise ValueError(f"k={k} > {_kernel.K_WARP_MAX} on a row past "
-                         f"{_kernel.SORT_MAX_NX} values takes k rounds over "
-                         f"the row in shared memory, which holds at most "
-                         f"{_kernel.ROUND_MAX_NX} values; this row has {nx}")
     vals = torch.empty((nq, k), dtype=torch.float32, device=d.device)
     idx = torch.empty((nq, k), dtype=torch.int32, device=d.device)
+    words = _kernel.workspace_words(nq, nx, k)
+    ws = (torch.empty(words, dtype=torch.int64, device=d.device)
+          if words else None)
     if nq:
-        _kernel.launch(d, k, vals, idx)
-        launches += 1
+        launches += _kernel.launch(d, k, vals, idx, ws)
     return vals, idx

@@ -10,8 +10,9 @@ pad-search-slice step — lives in module functions (:func:`validate_query`,
 ``repro.runtime.server``, so the batches the two packages form are the
 same.
 
-The reference's SLO mode (frontier-driven params), drift monitor and
-background compactor come with the tuner and streaming slices.
+SLO mode (frontier-driven params) and the drift monitor come from the
+tuner (:mod:`repro_torch.anns.tune`); the background compactor comes
+with the streaming slice.
 """
 from __future__ import annotations
 
@@ -136,17 +137,43 @@ def execute_search_batch(search_fn, queries: np.ndarray,
 
 
 class AnnsServer:
-    """Dynamic-batching ANNS front at a hand-picked operating point: pass
-    ``params`` (or ``ef``/``k``); the operator owns the recall/speed
-    trade."""
+    """Dynamic-batching ANNS front.
+
+    Two ways to fix the operating point:
+
+    - **hand-picked** — pass ``params`` (or ``ef``/``k``): the operator
+      owns the recall/speed trade.
+    - **SLO mode** — pass ``slo=RecallSLO(...)`` and a swept ``frontier``
+      (:mod:`repro_torch.anns.tune`): the server serves at the max-QPS
+      pick meeting the SLO *for the backend it holds*, its ``ef``
+      re-snapped onto the backend's static ladder.  An infeasible SLO
+      raises at construction.  The pick is kept on
+      ``self.operating_point``.
+    """
 
     def __init__(self, engine, *, max_batch: int = 64, ef: int = 64,
-                 k: int = 10, params: SearchParams | None = None):
+                 k: int = 10, params: SearchParams | None = None,
+                 slo=None, frontier=None):
         self.engine = engine
         self.max_batch = max_batch
-        self.params = params or SearchParams(k=k, ef=ef)
+        self.slo = slo
+        self.operating_point = None
+        if slo is not None:
+            if params is not None:
+                raise ValueError(
+                    "pass either slo (frontier-driven params) or explicit "
+                    "params, not both")
+            if frontier is None:
+                raise ValueError(
+                    "slo mode needs a swept frontier (repro_torch.anns.tune."
+                    "sweep_frontier / ckpt.load_frontier) to choose from")
+            self.operating_point = self._pick(slo, frontier)
+            self.params = self.operating_point.params
+        else:
+            self.params = params or SearchParams(k=k, ef=ef)
         self.queue: list[AnnsRequest] = []
         self.served = 0
+        self.drift_monitor = None
 
     @property
     def backend(self):
@@ -154,6 +181,46 @@ class AnnsServer:
         facade)."""
         return (self.engine.backend if isinstance(self.engine, Engine)
                 else self.engine)
+
+    def _snap_point(self, point):
+        """``ef`` re-snapped onto the served backend's static ladder."""
+        from repro_torch.anns.tune import snap_point_for_backend
+        return snap_point_for_backend(point, self.backend)
+
+    def _pick(self, slo, frontier):
+        """Constrained choice restricted to the served backend, ef
+        re-snapped onto its static ladder."""
+        from repro_torch.anns.tune import choose
+        point = choose(frontier, slo,
+                       backend=getattr(self.backend, "name", None))
+        return self._snap_point(point)
+
+    def attach_drift_monitor(self, monitor) -> None:
+        """Watch served telemetry with a
+        :class:`repro_torch.anns.tune.DriftMonitor` (fed via
+        :meth:`observe_served`)."""
+        self.drift_monitor = monitor
+
+    def observe_served(self, *, recall: float,
+                       latency_ms: float | None = None):
+        """Fold one served window's measured telemetry into the attached
+        drift monitor, with the backend's live tail fraction where it has
+        one; returns the monitor's verdict (None without a monitor)."""
+        if self.drift_monitor is None:
+            return None
+        tail_fn = getattr(self.backend, "tail_fraction", None)
+        tail = float(tail_fn()) if callable(tail_fn) else 0.0
+        return self.drift_monitor.observe(
+            recall=recall, latency_ms=latency_ms, tail_fraction=tail)
+
+    def apply_operating_point(self, point) -> None:
+        """Adopt a re-chosen operating point while serving: params snap
+        onto the ladder, and the drift monitor (if any) rebases."""
+        point = self._snap_point(point)
+        self.operating_point = point
+        self.params = point.params
+        if self.drift_monitor is not None:
+            self.drift_monitor.rebase(point)
 
     def submit(self, query: np.ndarray, k: int | None = None):
         if k is None:

@@ -92,12 +92,19 @@ def test_topk_kernel_gives_distinct_ids_past_big(dev):
 
 
 def _check_topk_once(d, k):
-    """One launch, ids equal and value bits equal to the plain version's."""
+    """One call: one launch, or the step sort's one per step plus a merge
+    per halving of the runs; ids equal and value bits equal to the plain
+    version's."""
     from repro_torch.kernels.topk import ops
+    from repro_torch.kernels.topk import topk as kernel
     from repro_torch.kernels.topk.ref import topk_smallest_ref
+    nx = d.shape[1]
+    want = 1
+    if k > kernel.K_WARP_MAX and nx > kernel.SORT_MAX_NX:
+        want += (-(-nx // kernel.STEP_NX) - 1).bit_length()
     before = ops.launches
     v, i = ops.topk_smallest(d, k)
-    assert ops.launches == before + 1
+    assert ops.launches == before + want
     wv, wi = topk_smallest_ref(d, k)
     assert torch.equal(i, wi)
     assert torch.equal(v.view(torch.int32), wv.view(torch.int32))
@@ -105,12 +112,13 @@ def _check_topk_once(d, k):
 
 # k = nx (the row sort), a row past the old kernel's 57,856 values, the
 # k-means assignment (k = 1), a step boundary with the k smallest last, a
-# brute-force merge of 123 chunks at k = 300 and k = nx past the row sort
-# (the k rounds)
+# brute-force merge of 123 chunks at k = 300 and 471, and k = nx past the
+# row sort (the step sort, to 100,000 values)
 @pytest.mark.parametrize("nq,nx,k", [(64, 1569, 1569), (2, 100_000, 10),
                                      (4096, 1024, 1), (3, 60_000, 256),
                                      (5, 28672, 300), (64, 123 * 300, 300),
-                                     (2, 40_000, 40_000)])
+                                     (2, 40_000, 40_000), (64, 123 * 471, 471),
+                                     (2, 100_000, 100_000), (3, 57_857, 257)])
 def test_topk_kernel_shapes(dev, nq, nx, k):
     g = torch.Generator(device=dev).manual_seed(5)
     d = torch.randn(nq, nx, generator=g, device=dev)
@@ -127,6 +135,17 @@ def test_topk_kernel_ties_across_an_edge(dev, edge):
     d = torch.rand(4, 20_000, generator=g, device=dev) + 1.0
     d[:, edge - 5:edge + 5] = 0.5
     _check_topk_once(d, 7)
+
+
+def test_topk_kernel_ties_across_a_step_sort_edge(dev):
+    """k > 256 past the row sort: equal values across each 8,192-value
+    step of the step sort, cut in their middle."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    d = torch.rand(3, 41_000, generator=g, device=dev) + 1.0
+    for e in range(8192, 41_000, 8192):
+        d[:, e - 200:e + 200] = 0.5
+    _check_topk_once(d, 307)
+    _check_topk_once(d, 2100)
 
 
 @pytest.mark.parametrize("nx", [8192, 1230])
@@ -292,8 +311,11 @@ def _cell_table(g, dev, nlist, pad):
 
 
 # the 1M x 128 ivf layout's shapes (64 queries, 16 probed cells of a
-# 2,048-wide table over 1,024 cells), ragged d and a small table
+# 2,048-wide table over 1,024 cells), the tune sweep's widest rungs over
+# its 1,569 cells (256 and all of them), ragged d and a small table
 @pytest.mark.parametrize("B,nprobe,nlist,pad,d", [(64, 16, 1024, 2048, 128),
+                                                  (8, 256, 1569, 2048, 128),
+                                                  (2, 1569, 1569, 2048, 128),
                                                   (9, 5, 40, 24, 25),
                                                   (3, 7, 12, 16, 64)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -316,3 +338,52 @@ def test_qdist_cell_scan_kernel_matches_plain(dev, B, nprobe, nlist, pad, d,
     dead = want == BIG
     assert dead.any() and torch.equal(got[dead], want[dead])
     torch.testing.assert_close(got[~dead], want[~dead], rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", ["brute_force", "ivf", "sharded"])
+def test_index_checkpoint_round_trip_on_the_card(dev, tmp_path, name):
+    """save_index of a card index, load_index onto the card (its default
+    device): the same ids, and the same ids as the CPU copy's."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.anns import SearchParams, make_dataset, registry
+    from repro_torch.anns.engine import family_baseline
+    ds = make_dataset("sift-128-euclidean", n_base=3000, n_query=64,
+                      device=dev)
+    v = dataclasses.replace(family_baseline(name), nlist=32)
+    b = registry.create(name, v, metric=ds.metric, device=dev)
+    b.build(ds.base)
+    ckpt.save_index(str(tmp_path / "idx"), b)
+    loaded = ckpt.load_index(str(tmp_path / "idx"))
+    on_cpu = ckpt.load_index(str(tmp_path / "idx"), device="cpu")
+    assert loaded.device.type == "cuda"
+    p = SearchParams(k=10, ef=64)
+    want = b.search(ds.queries, p).ids
+    assert torch.equal(loaded.search(ds.queries, p).ids, want)
+    np.testing.assert_array_equal(on_cpu.search(ds.queries, p).ids.numpy(),
+                                  want.cpu().numpy())
+
+
+def test_tune_sweep_and_slo_server_on_the_card(dev):
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.anns import make_dataset, registry, tune
+    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.anns.engine import IVF_BASELINE
+    from repro_torch.runtime.server import AnnsServer
+    ds = make_dataset("sift-128-euclidean", n_base=5000, n_query=128,
+                      device=dev)
+    b = registry.create("ivf", dataclasses.replace(IVF_BASELINE, nlist=64),
+                        metric=ds.metric, device=dev)
+    b.build(ds.base)
+    f = tune.sweep_frontier(ds, backends=(), targets=[b], repeats=1)
+    assert f.points and f.max_recall("ivf") >= 0.99
+    srv = AnnsServer(b, slo=tune.RecallSLO(0.9), frontier=f)
+    for q in ds.queries:
+        srv.submit(q)
+    found = np.stack([r.ids for r in srv.run()])
+    assert recall_at_k(found, ds.gt, 10) == pytest.approx(
+        srv.operating_point.recall, abs=1e-9)

@@ -29,17 +29,23 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.flash.ops" in mods
     assert "repro_torch.anns.backends.sharded" in mods
     assert "repro_torch.anns.ivf.kmeans" in mods
+    assert {"repro_torch.ckpt", "repro_torch.ckpt.index_io",
+            "repro_torch.anns.tune"} <= set(mods)
+    # the H100 machine has neither msgpack nor zstandard
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['zstandard'] = None\n"
         f"sys.path.insert(0, {str(SRC)!r})\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from repro_torch.anns import registry\n"
         "for name in registry.available():\n"
         "    registry.get(name)\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "assert not any(m in ('jax', 'msgpack', 'zstandard')\n"
+        "               or m.startswith(('jax.', 'repro.', 'msgpack.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -108,3 +114,43 @@ def test_policy_model_and_cache_default_to_cuda(no_card):
         model.DecoderLM(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_cache(cfg, 2, 8)
+
+
+def test_load_index_defaults_to_cuda_and_raises_without_a_card(no_card,
+                                                                tmp_path):
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.anns import registry
+    b = registry.create("brute_force", device="cpu")
+    b.build(np.zeros((8, 4), np.float32))
+    ckpt.save_index(str(tmp_path / "idx"), b)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ckpt.load_index(str(tmp_path / "idx"))
+    assert ckpt.load_index(str(tmp_path / "idx"),
+                           device="cpu").device.type == "cpu"
+
+
+def test_sweep_frontier_and_serve_tune_default_to_cuda(no_card):
+    from repro_torch.anns import make_dataset
+    from repro_torch.anns.tune import sweep_frontier
+    from repro_torch.launch import serve
+    ds = make_dataset("glove-25-angular", n_base=50, n_query=4, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_frontier(ds, backends=("brute_force",))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--n-base", "50", "--n-query", "4", "--n-requests", "4",
+                    "--backend", "ivf", "--tune"])
+
+
+def test_quickstart_torch_defaults_to_cuda_and_raises_without_a_card(no_card):
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(SRC)!r})\n"
+            "sys.argv = ['quickstart_torch.py']\n"
+            "import runpy\n"
+            f"runpy.run_path({str(SRC.parent / 'examples' / 'quickstart_torch.py')!r},"
+            " run_name='__main__')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert "no CUDA device available" in res.stderr
+    assert "dataset:" not in res.stdout

@@ -7,7 +7,7 @@ its own constants (read from the source and held equal to
 values in the kernel's load layout, the warps' bounds, the row's, the
 candidates placed by rank or by the virtually padded bitonic network, rows
 in steps with the running k smallest), the k = 1 argmin, the row sort and
-the k rounds.
+the step sort (steps sorted alone, their runs merged in rounds).
 Each emulated result must equal, ids and value bits, the plain version's
 (a stable sort cut at k) and the JAX package's (its plain version, and its
 Pallas kernel in interpret mode at the main path's shapes) where the rows
@@ -42,9 +42,8 @@ def _constant(name: str) -> int:
 
 CHUNK, WARPS = _constant("CHUNK"), _constant("WARPS")
 K_WARP_MAX, SORT_MAX_NX = _constant("K_WARP_MAX"), _constant("SORT_MAX_NX")
-ROUND_MAX_NX, THREADS = _constant("ROUND_MAX_NX"), 32 * WARPS
+STEP_NX, THREADS = _constant("STEP_NX"), 32 * WARPS
 NAN_KEY, PAD_KEY = np.uint32(0xFFFFFFFE), np.uint32(0xFFFFFFFF)
-TAKEN = np.uint32(0xFFFFFFFF)
 NONE = np.uint64(0xFFFFFFFFFFFFFFFF)
 LOW = np.uint64(0xFFFFFFFF)
 
@@ -59,15 +58,54 @@ def warps_per_row(nx: int) -> int:
 
 
 def test_constants_match_the_binding():
-    assert (CHUNK, WARPS, K_WARP_MAX, SORT_MAX_NX, ROUND_MAX_NX) == (
-        kt.CHUNK, kt.WARPS, kt.K_WARP_MAX, kt.SORT_MAX_NX, kt.ROUND_MAX_NX)
-    # the k rounds' keys and its static words fit the 227 KB a block may have
-    assert 4 * ROUND_MAX_NX + 8 * (WARPS + 1) <= 232448
+    assert (CHUNK, WARPS, K_WARP_MAX, SORT_MAX_NX, STEP_NX) == (
+        kt.CHUNK, kt.WARPS, kt.K_WARP_MAX, kt.SORT_MAX_NX, kt.STEP_NX)
+    # the row sort's and a step's words fit the 227 KB a block may have; a
+    # step fits the row sort, so rows past SORT_MAX_NX have two steps or more
+    assert 8 * SORT_MAX_NX <= 232448 and STEP_NX <= SORT_MAX_NX
     assert CHUNK // 32 == 32          # a lane holds 32 values
     assert "while (W < WARPS && (long long)W * CHUNK < nx) W *= 2;" in SOURCE
     for nx, w in [(1, 1), (1024, 1), (1025, 2), (1230, 2), (1569, 2),
                   (8192, 8), (8193, 8), (10**6, 8)]:
         assert warps_per_row(nx) == w
+
+
+@pytest.mark.parametrize("nq,nx,k,launched", [(4, 1000, 10, 1),
+                                              (2, 100_000, 300, 5)])
+def test_binding_passes_the_c_entrys_arguments(monkeypatch, nq, nx, k, launched):
+    """The ctypes signature has the C entry's arity, the workspace is a
+    null pointer where no step sort runs, and ``launch`` returns the count
+    of kernels the entry reports."""
+    import ctypes
+    import types
+
+    m = re.search(r'extern "C" int topk_launch\(([^)]*)\)', SOURCE)
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert params[-1] == "int* launched"
+    seen = {}
+
+    class Entry:
+        argtypes = restype = None
+
+        def __call__(self, *args):
+            assert len(args) == len(self.argtypes) == len(params)
+            seen["ws"] = args[6]
+            ctypes.cast(args[-1], ctypes.POINTER(ctypes.c_int))[0] = launched
+            return 0
+
+    lib = types.SimpleNamespace(topk_launch=Entry())
+    monkeypatch.setattr(kt._build, "load", lambda name: lib)
+    monkeypatch.setattr(kt, "stream_handle", lambda t: 0)
+    d = torch.zeros(nq, nx)
+    words = kt.workspace_words(nq, nx, k)
+    ws = torch.zeros(words, dtype=torch.int64) if words else None
+    got = kt.launch(d, k, torch.empty(nq, k), torch.empty(nq, k, dtype=torch.int32), ws)
+    assert got == launched
+    assert (seen["ws"] is None) == (ws is None)
+    if ws is not None:
+        steps = -(-nx // STEP_NX)
+        assert words == 2 * nq * steps * min(k, STEP_NX)
+        assert launched == 1 + (steps - 1).bit_length()
 
 
 # ---------------------------------------------------------------------------
@@ -234,23 +272,48 @@ def row_sort(row: np.ndarray, k: int) -> np.ndarray:
     return (w[:k] & LOW).astype(np.int64)
 
 
-def rounds(row: np.ndarray, k: int) -> np.ndarray:
-    """k rounds of the block's least word, its slot then taken."""
+def step_sort(row: np.ndarray, k: int) -> np.ndarray:
+    """k > K_WARP_MAX past SORT_MAX_NX: each step of STEP_NX values sorted
+    alone (the row sort's network) and cut at k, then rounds that merge
+    the runs pairwise, every word placed at its index in its run plus the
+    count of the other run's words below it, words placed at k or past
+    dropped.  The runs sit where the launcher's workspace puts them."""
     nx = len(row)
-    kk = keys(row).astype(np.uint64)
-    lane_best = np.full(THREADS, NONE)      # each thread's strided slots
-    w = (kk << np.uint64(32)) | np.arange(nx, dtype=np.uint64)
-    for t in range(THREADS):
-        lane_best[t] = w[t::THREADS].min(initial=NONE)
-    out = []
-    for _ in range(k):
-        win = lane_best.min()
-        col = int(win & LOW)
-        out.append(col)
-        w[col] = (np.uint64(TAKEN) << np.uint64(32)) | np.uint64(col)
-        t = col % THREADS                   # only its owner rescans
-        lane_best[t] = w[t::THREADS].min()
-    return np.array(out, np.int64)
+    steps = -(-nx // STEP_NX)
+    kk = min(k, STEP_NX)
+    runs = []
+    for s in range(steps):
+        lo = s * STEP_NX
+        n = min(STEP_NX, nx - lo)
+        w = bitonic(words(row[lo:lo + n], np.arange(lo, lo + n)), n)
+        runs.append(w[:min(k, n)])
+    r = 0
+    while len(runs) > 1:
+        span = STEP_NX << r
+
+        def run_len(c0):
+            return max(0, min(k, min(nx, c0 + span) - c0))
+        merged = []
+        for p in range(0, len(runs), 2):
+            a = runs[p]
+            b = runs[p + 1] if p + 1 < len(runs) else np.zeros(0, np.uint64)
+            # the lengths the kernel works out from the columns, and the
+            # runs inside the row's part of a buffer (steps * kk words)
+            assert (len(a), len(b)) == (run_len(p * span),
+                                        run_len((p + 1) * span))
+            assert p * (kk << r) + len(a) <= steps * kk
+            assert not len(b) or (p + 1) * (kk << r) + len(b) <= steps * kk
+            m = min(k, len(a) + len(b))
+            assert (p // 2) * (kk << (r + 1)) + m <= steps * kk
+            out = np.full(m, NONE)
+            for run, other in ((a, b), (b, a)):
+                pos = np.arange(len(run)) + np.searchsorted(other, run)
+                out[pos[pos < m]] = run[pos < m]
+            assert (out[1:] > out[:-1]).all() and (out != NONE).all()
+            merged.append(out)
+        runs, r = merged, r + 1
+    assert (1 << r) >= steps > (1 << r) // 2
+    return (runs[0][:k] & LOW).astype(np.int64)
 
 
 def emulated_topk(d: np.ndarray, k: int):
@@ -265,8 +328,7 @@ def emulated_topk(d: np.ndarray, k: int):
         elif len(row) <= SORT_MAX_NX:
             ids.append(row_sort(row, k))
         else:
-            assert len(row) <= ROUND_MAX_NX
-            ids.append(rounds(row, k))
+            ids.append(step_sort(row, k))
     ids = np.stack(ids)
     return np.take_along_axis(d, ids, 1), ids.astype(np.int32)
 
@@ -300,7 +362,8 @@ def _rng(seed):
                                      (2, 1569, 16), (2, 1569, 1569),
                                      (8, 1024, 1), (2, 1000, 32),
                                      (1, 333, 100), (2, 9000, 256),
-                                     (2, 9001, 257), (2, 4097, 1)])
+                                     (2, 9001, 257), (2, 4097, 1),
+                                     (2, 1569, 192), (2, 1569, 256)])
 def test_main_path_shapes(nq, nx, k):
     d = _rng(nx + k).standard_normal((nq, nx)).astype(np.float32)
     check(d, k, pallas=nx <= 8192 and k <= 256)
@@ -352,12 +415,46 @@ def test_large_k_takes_the_bitonic_sort():
     assert "bitonic" in paths
 
 
-@pytest.mark.parametrize("nx,k", [(123 * 300, 300), (SORT_MAX_NX + 1, 257)])
-def test_large_k_past_the_row_sort_takes_k_rounds(nx, k):
-    """A brute-force merge of 123 chunks at k = 300: past the row sort's
-    28,672 values, so k rounds over the row's keys."""
+@pytest.mark.parametrize("nx,k", [(123 * 300, 300), (SORT_MAX_NX + 1, 257),
+                                  (123 * 471, 471)])
+def test_large_k_past_the_row_sort_takes_the_step_sort(nx, k):
+    """A brute-force merge of 123 chunks at k = 300 and at 471 (past the
+    57,856 values the former k-rounds kernel held): past the row sort's 28,672
+    values, so the step sort, its merge rounds ending in one run."""
     d = _rng(nx).standard_normal((1, nx)).astype(np.float32)
     d[0, ::7] = 0.5                      # ties among the k smallest
+    check(d, k)
+
+
+@pytest.mark.parametrize("nx", [40_000, 60_000])
+def test_k_equal_to_nx_past_the_row_sort(nx):
+    """Every value kept (k = nx): each step keeps all its words, and the
+    merges keep every word of both runs."""
+    d = _rng(nx).standard_normal((1, nx)).astype(np.float32)
+    d[0, 5::9] = 1.25
+    check(d, nx)
+
+
+def test_step_sort_ties_across_a_step_edge():
+    """Equal values on both sides of every step's edge, cut in their
+    middle: the words carry the column, so the lower columns win."""
+    d = (_rng(6).random((2, 5 * STEP_NX + 11)) + 1.0).astype(np.float32)
+    for e in range(STEP_NX, 5 * STEP_NX + 1, STEP_NX):
+        d[:, e - 200:e + 200] = 0.5
+    check(d, 300 + 7)
+    check(d, 2100)
+
+
+@settings(max_examples=8, deadline=None)
+@given(nx=st.integers(SORT_MAX_NX + 1, 80_000), kfrac=st.floats(0.0, 1.0),
+       levels=st.sampled_from([3, 500, 0]), seed=st.integers(0, 2**16))
+def test_step_sort_matches_a_stable_sort(nx, kfrac, levels, seed):
+    """Random widths past the row sort (odd step counts too), k from 257 to
+    nx, and tie patterns."""
+    k = K_WARP_MAX + 1 + int(kfrac * (nx - K_WARP_MAX - 1))
+    rng = _rng(seed)
+    d = (rng.integers(0, levels, (1, nx)) if levels
+         else rng.standard_normal((1, nx))).astype(np.float32)
     check(d, k)
 
 
