@@ -48,7 +48,41 @@ non-zero without its last line):
                AnnsServer in SLO mode (RecallSLO(0.9)) serves 512
                requests within 0.02 of its pick's swept recall.  Counters
                as for main.
-6. ref20k   -- recall@10 of graph / quantized_prefilter / ivf / sharded
+6. stream   -- the streaming indexes at 1M: stream_ivf (tail 16,384) and
+               stream_sharded (2 shards, 8,192 a shard) adopt the main
+               phase's ivf and sharded indexes (their to_state_dict(), no
+               second build), served through AnnsServer at ef 64 and 384
+               in five stages: (1) an empty tail, the base saved; (2) 10 x
+               1,000 inserts and 10,000 deletes, two save_index_deltas on
+               the way; (3) compact(); (4) load_index of base + deltas onto
+               the card; (5) serving while a BackgroundCompactor prepares,
+               warms and commits on a second thread.  Checks: every
+               inserted vector returns its own id at rank 0 before and
+               after compaction, no deleted id is served, recall@10 against
+               the live gt within 0.02 of the read-only ivf's and >= 0.99
+               at the all-cells probe, a twin given the same history
+               compacts to the same bytes, the replayed index gives the
+               stage-2 ids, stage 5 serves only live ids, and
+               stream_sharded returns stream_ivf's ids at every stage.
+               On each layout served (before compaction, after it, after
+               the background one), the probe's distance and topk at
+               each ef and at every cell, the cell scan of those probes
+               (each shard's table for stream_sharded) and compaction's
+               and insert routing's assignment chunks are held against
+               their plain versions on the same inputs; those launches
+               are not the path's.
+7. async    -- the AsyncServeTier over the 1M ivf, tenants
+               gold:0.95:3:20,bronze:0.6:1 picked from tune's frontier,
+               max_batch 64, max_queue 256: a burst of 768 submissions
+               before the serve loop runs (exactly 256 admitted, 512 typed
+               Overloaded), then 4,096 requests (3 gold : 1 bronze) from an
+               asyncio loop, each a distinct row of the 10,000 queries
+               scored against its own gt row, then close(drain=True).  Checks: the
+               accounting invariant, no batch mixing the tenants' picks,
+               one batch shape per tenant group, each tenant's served
+               recall within 0.02 of its pick's swept recall.  Counters for
+               stream and async as for main.
+8. ref20k   -- recall@10 of graph / quantized_prefilter / ivf / sharded
                (1, 2, 4 shards) at 20,000 vectors against the JAX package's
                numbers on the same data; sharded at 1 shard returns ivf's
                ids, ivf at the all-cells probe brute_force's; the optimized
@@ -56,8 +90,10 @@ non-zero without its last line):
                backend served with --save-index here and with --load-index
                in a separate process at the same recall, --tune
                --save-frontier then --load-frontier --target-recall 0.9,
-               and --filter-demo.
-7. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
+               --filter-demo, the streaming-drift episode (--backend
+               stream_ivf --stream-demo) and the multi-tenant one (--async
+               --tenants), each printing the reference tests' markers.
+9. rl       -- the CRINN RL loop through ``repro_torch.launch.train_crinn``:
                the 114M-parameter policy (fp32, full width and depth) samples
                GRPO groups of 6 programs, each built and swept on the engine
                at 5,000 x 128 and scored by the banded AUC, then takes a
@@ -772,10 +808,11 @@ def kernel_flash(gen) -> dict:
 # 4. the main path at SIFT1M scale
 # ---------------------------------------------------------------------------
 def serve_requests(backend, queries, gt, *, n_requests: int, ef: int,
-                   k: int = 10, max_batch: int = 64, server=None) -> dict:
+                   k: int = 10, max_batch: int = 64, server=None,
+                   keep_ids: bool = False) -> dict:
     """Closed-loop serving through AnnsServer (``server``, or one at k and
     ef): windows of ``max_batch`` requests, each submitted then
-    flushed."""
+    flushed.  ``keep_ids`` returns the served ids under ``"ids"``."""
     from repro_torch.anns import SearchParams
     from repro_torch.anns.datasets import recall_at_k
     from repro_torch.runtime.server import AnnsServer
@@ -796,10 +833,13 @@ def serve_requests(backend, queries, gt, *, n_requests: int, ef: int,
     lat = np.array([r.latency_ms for r in responses])
     found = np.stack([r.ids for r in responses])
     check(found.shape == (n_requests, k), f"served shape {found.shape}")
-    return {"ef": ef, "requests": n_requests, "seconds": dt,
-            "qps": n_requests / dt, "p50_ms": float(np.percentile(lat, 50)),
-            "p99_ms": float(np.percentile(lat, 99)),
-            f"recall@{k}": recall_at_k(found, gt[order], k)}
+    out = {"ef": ef, "requests": n_requests, "seconds": dt,
+           "qps": n_requests / dt, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           f"recall@{k}": recall_at_k(found, gt[order], k)}
+    if keep_ids:
+        out["ids"] = found
+    return out
 
 
 def top_kernels(by_kernel: dict, n: int) -> dict:
@@ -1013,10 +1053,11 @@ def phase_main(n_base: int, n_query: int, n_requests: int):
 TUNE_QUERIES = 256
 
 
-def phase_tune(ds, targets: dict) -> dict:
+def phase_tune(ds, targets: dict):
     """sweep_frontier over the built 1M ivf and sharded backends, every
     rung of their nprobe ladders; then an SLO-mode server.  Returns the
-    kernels' launches of the sweep and the SLO serving."""
+    kernels' launches of the sweep and the SLO serving, and the
+    frontier."""
     import dataclasses
 
     from repro_torch.anns import tune
@@ -1084,11 +1125,561 @@ def phase_tune(ds, targets: dict) -> dict:
                    "recall@10": server.operating_point.recall,
                    "qps": server.operating_point.qps},
           "served": served, "launches": launches})
+    return launches, frontier
+
+
+# ---------------------------------------------------------------------------
+# 6. the streaming indexes at 1M (stream-1M)
+# ---------------------------------------------------------------------------
+#: stream-1M: the serve-1M ivf / sharded indexes made mutable (tail caps:
+#: 16,384 x 128 fp32 = 8.4 MB for stream_ivf, 8,192 a shard for
+#: stream_sharded), 10 insert batches of 1,000 fresh vectors and 10,000
+#: deletes, served at ef 64 (nprobe 16) and ef 384 (the tune-1M pick)
+STREAM_1M = {"ivf_tail_cap": 16384, "sharded_tail_cap": 8192,
+             "insert_batches": 10, "insert_batch": 1000, "deletes": 10_000,
+             "requests": 2048, "efs": (64, 384), "recall_queries": 1000,
+             "seed": 1}
+
+
+def _stream_serve(backends, queries, gt, counters, live=None) -> dict:
+    """Serve STREAM_1M["requests"] requests drawn from ``queries`` at each
+    ef through AnnsServer on each backend; the ids of every response are
+    checked against ``live`` (a set of ids) when given."""
+    out = {}
+    for name, b in backends.items():
+        for ef in STREAM_1M["efs"]:
+            before = read_counts(counters)
+            row = serve_requests(b, queries, gt, ef=ef,
+                                 n_requests=STREAM_1M["requests"],
+                                 keep_ids=live is not None)
+            row["launches"] = {k: v - before[k]
+                               for k, v in read_counts(counters).items()}
+            if live is not None:
+                ids = row.pop("ids")
+                stray = set(np.unique(ids).tolist()) - live - {-1}
+                check(not stray, f"stream {name} ef={ef}: ids outside the "
+                      f"live set: {sorted(stray)[:5]}")
+            out[f"{name}.ef{ef}"] = row
+    return out
+
+
+def _ids_at(b, queries, ef: int, n: int = 512) -> torch.Tensor:
+    from repro_torch.anns import SearchParams
+    p = SearchParams(k=10, ef=ef)
+    return torch.cat([b.search(queries[i:i + n], p).ids
+                      for i in range(0, len(queries), n)])
+
+
+def _check_twins(stage: str, a, s, queries) -> None:
+    """stream_sharded returns stream_ivf's ids (the family invariant)."""
+    for ef in STREAM_1M["efs"]:
+        ia, is_ = _ids_at(a, queries, ef), _ids_at(s, queries, ef)
+        check(torch.equal(ia, is_), f"stream {stage} ef={ef}: stream_sharded "
+              f"differs from stream_ivf on "
+              f"{int((ia != is_).any(1).sum())} of {len(queries)} queries")
+
+
+def _inserted_find_themselves(b, vecs, ids, stage: str) -> None:
+    from repro_torch.anns import SearchParams
+    got = torch.cat([b.search(vecs[i:i + 500], SearchParams(k=1, ef=64)).ids
+                     for i in range(0, len(vecs), 500)])[:, 0].cpu().numpy()
+    bad = np.flatnonzero(got != ids)
+    check(not len(bad), f"stream {stage} {b.name}: {len(bad)} of {len(ids)} "
+          f"inserted vectors do not return their own id at rank 0 "
+          f"(first: {ids[bad[:3]]} -> {got[bad[:3]]})")
+
+
+def _no_tombstone(rows: dict, dead: set, stage: str) -> None:
+    for key, ids in rows.items():
+        hit = set(np.unique(ids).tolist()) & dead
+        check(not hit, f"stream {stage} {key}: deleted ids served: "
+              f"{sorted(hit)[:5]}")
+
+
+def _stream_vs_plain(backends, queries, assign_rows, where: str) -> dict:
+    """The stream path's kernels on the layouts it serves, held against
+    their plain versions on the same card inputs: each backend's probe of
+    64 queries at each served ef and at every cell, the cell scan of each
+    probe (stream_sharded: each shard's table, the other's cells -1; at
+    every cell two queries), and the assignment compaction and insert
+    routing run (``assign``: distance, then topk k 1) against the served
+    centroids, on the first ``r`` live vectors for each ``r`` in
+    ``assign_rows``.  Returns the largest error of each; the caller keeps
+    these launches out of the path's counts."""
+    from repro_torch.anns import SearchParams
+    from repro_torch.kernels.distance.ops import pairwise_distance
+    from repro_torch.kernels.distance.ref import distance_ref
+    from repro_torch.kernels.qdist.ops import quantized_cell_scan
+    from repro_torch.kernels.qdist.ref import BIG, qdist_cells_ref
+    from repro_torch.kernels.topk.ops import topk_smallest
+    from repro_torch.kernels.topk.ref import topk_smallest_ref
+
+    a = next(iter(backends.values()))
+    dev = a.index.centroids.device
+    q = torch.as_tensor(queries[:64], device=dev)
+    errs = {"distance": 0.0, "qdist.cell_scan": 0.0}
+    shapes = {"topk": set(), "scan": set(), "distance": set()}
+
+    def dist(x, c, metric):
+        got = pairwise_distance(x, c, metric=metric)
+        want = distance_ref(x, c, metric)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+        errs["distance"] = max(errs["distance"],
+                               float((got - want).abs().max()))
+        shapes["distance"].add(tuple(x.shape[:1]) + tuple(c.shape))
+        return got
+
+    def top(dm, k):
+        v, i = topk_smallest(dm, k)
+        wv, wi = topk_smallest_ref(dm, k)
+        torch.cuda.synchronize()
+        at = f"{where}: topk {tuple(dm.shape)} k={k}"
+        check(torch.equal(i, wi), f"stream {at}: ids differ from the plain")
+        check(torch.equal(v.view(torch.int32), wv.view(torch.int32)),
+              f"stream {at}: values differ from the plain")
+        shapes["topk"].add((*dm.shape, k))
+        return i
+
+    def scan(qs, bq, sc, cells, rows, metric, label):
+        got = quantized_cell_scan(qs, bq, sc, cells, rows, metric=metric)
+        for lo in range(0, len(qs), 16):
+            want = qdist_cells_ref(qs[lo:lo + 16], bq, sc, cells,
+                                   rows[lo:lo + 16], metric)
+            torch.cuda.synchronize()
+            g = got[lo:lo + 16]
+            dead = want == BIG
+            check(torch.equal(g[dead], want[dead]), f"stream {where}: "
+                  f"{label}: a -1 slot is not exactly BIG")
+            torch.testing.assert_close(g[~dead], want[~dead], **QDIST_TOL)
+            errs["qdist.cell_scan"] = max(errs["qdist.cell_scan"], float(
+                (g[~dead] - want[~dead]).abs().max()))
+            del want, dead
+        shapes["scan"].add((len(qs), rows.shape[1], *cells.shape[-2:]))
+
+    for name, b in backends.items():
+        idx, metric = b.index, b.metric
+        dc = dist(q, idx.centroids, metric)
+        nprobes = [b.search(q, SearchParams(k=10, ef=ef)).steps
+                   for ef in STREAM_1M["efs"]] + [idx.nlist]
+        for nprobe in nprobes:
+            probe = top(dc, nprobe)
+            qs, probe = (q[:2], probe[:2]) if nprobe == idx.nlist else (q, probe)
+            label = f"{name} nprobe {nprobe}"
+            if name == "stream_ivf":
+                scan(qs, idx.base_q, idx.scales, idx.cells,
+                     probe.to(torch.int32), metric, label)
+                continue
+            owner = idx.cell_shard[probe.long()]
+            row = idx.cell_row[probe.long()]
+            for j in range(idx.n_shards):
+                rows_j = torch.where(owner == j, row, -1).to(torch.int32)
+                scan(qs, idx.base_q[j], idx.scales[j], idx.cells[j], rows_j,
+                     metric, f"{label} shard {j}")
+            torch.cuda.empty_cache()
+    vecs = torch.as_tensor(a.live_vectors()[0], device=dev)
+    for r in assign_rows:
+        top(dist(vecs[:r], a.index.centroids, a.metric), 1)
+    del vecs
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs,
+            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+
+
+def _stream_recalls(backends, queries, gt, ef_ro: dict, stage: str) -> dict:
+    """recall@10 of each backend against the live gt on the recall
+    queries, held within 0.02 of the read-only ivf's at each ef."""
+    from repro_torch.anns.datasets import recall_at_k
+    out = {}
+    for name, b in backends.items():
+        for ef in STREAM_1M["efs"]:
+            rec = recall_at_k(_ids_at(b, queries, ef).cpu().numpy(), gt, 10)
+            out[f"{name}.ef{ef}"] = rec
+            check(abs(rec - ef_ro[ef]) <= 0.02,
+                  f"stream {stage} {name} ef={ef}: recall@10 {rec} vs the "
+                  f"read-only ivf's {ef_ro[ef]}")
+    return out
+
+
+def phase_stream(ds, kept: dict) -> tuple[dict, dict]:
+    """stream-1M (see the docstring): returns the kernels' launches and
+    their comparisons with the plain versions on the served layouts."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch.anns import SearchParams, registry
+    from repro_torch.anns.datasets import make_dataset, recall_at_k
+    from repro_torch.anns.ivf.kmeans import ASSIGN_CHUNK
+    from repro_torch.anns.stream import BackgroundCompactor, exact_live_gt
+
+    cfg = STREAM_1M
+    counters = kernel_counters()
+    zero_counts(counters)
+    path_counts = {k: 0 for k in read_counts(counters)}
+
+    def bank():
+        for k, v in read_counts(counters).items():
+            path_counts[k] += v
+        zero_counts(counters)
+
+    t0 = time.perf_counter()
+    states = {"ivf": kept["ivf"].to_state_dict(),
+              "sharded": kept["sharded"].to_state_dict()}
+
+    def stream_of(src: str, cap: int):
+        name = f"stream_{src}"
+        v = dataclasses.replace(kept[src].variant, backend=name, tail_cap=cap)
+        b = registry.create(name, v, metric=ds.metric, device="cuda")
+        b.from_state_dict(states[src])
+        return b
+
+    a = stream_of("ivf", cfg["ivf_tail_cap"])
+    s = stream_of("sharded", cfg["sharded_tail_cap"])
+    twin = stream_of("ivf", cfg["ivf_tail_cap"])  # the determinism twin
+    del states
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    backends = {"stream_ivf": a, "stream_sharded": s}
+    nq = cfg["recall_queries"]
+    q = ds.queries[:nq]
+
+    # the read-only ivf at the same efs, against the dataset's gt
+    ef_ro = {ef: recall_at_k(_ids_at(kept["ivf"], q, ef).cpu().numpy(),
+                             ds.gt[:nq], 10) for ef in cfg["efs"]}
+    row = {"phase": "stream", "setup_s": setup_s,
+           "tail_caps": {"stream_ivf": cfg["ivf_tail_cap"],
+                         "stream_sharded": cfg["sharded_tail_cap"]},
+           "readonly_ivf_recall@10": ef_ro, "stages": {}}
+    stages = row["stages"]
+
+    # stage 1: empty tail; save the base
+    gt1 = exact_live_gt(a, q, 10)
+    zero_counts(counters)
+    stages["1_empty"] = {"serve": _stream_serve(backends, q, gt1, counters),
+                         "recall@10": _stream_recalls(backends, q, gt1,
+                                                      ef_ro, "1")}
+    _check_twins("1", a, s, q)
+    bank()
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    base_dir = os.path.join(tmp.name, "stream_ivf")
+    t0 = time.perf_counter()
+    ckpt.save_index(base_dir, a)
+    base_save_s = time.perf_counter() - t0
+
+    # stage 2: 10 x 1,000 inserts from the dataset's generator under
+    # another seed, 10,000 random base ids deleted, two deltas on the way
+    fresh = make_dataset("sift-128-euclidean", n_base=cfg["insert_batches"]
+                         * cfg["insert_batch"], n_query=1,
+                         seed=cfg["seed"], device="cuda").base
+    rng = np.random.default_rng(cfg["seed"])
+    dead_ids = rng.choice(kept["ivf"].index.n, cfg["deletes"], replace=False)
+    new_ids, delta_s, delta_bytes = [], [], []
+    t0 = time.perf_counter()
+    for j in range(cfg["insert_batches"]):
+        chunk = fresh[j * cfg["insert_batch"]:(j + 1) * cfg["insert_batch"]]
+        ids = [b.insert(chunk) for b in (a, s, twin)]
+        check(all(np.array_equal(ids[0], i) for i in ids[1:]),
+              "stream: insert ids differ between the backends")
+        new_ids.append(ids[0])
+        if j == cfg["insert_batches"] // 2 - 1:
+            for b in (a, s, twin):
+                b.delete(dead_ids[: cfg["deletes"] // 2])
+        if j in (cfg["insert_batches"] // 2 - 1, cfg["insert_batches"] - 1):
+            if j == cfg["insert_batches"] - 1:
+                for b in (a, s, twin):
+                    b.delete(dead_ids[cfg["deletes"] // 2:])
+            t1 = time.perf_counter()
+            sub = ckpt.save_index_delta(base_dir, a)
+            delta_s.append(time.perf_counter() - t1)
+            delta_bytes.append(sum(os.path.getsize(os.path.join(sub, f))
+                                   for f in os.listdir(sub)))
+    mutate_s = time.perf_counter() - t0
+    new_ids = np.concatenate(new_ids)
+    dead = set(dead_ids.tolist())
+    live_ids = set(a.live_vectors()[1].tolist())
+    check(len(live_ids) == a.n_live() == s.n_live()
+          == kept["ivf"].index.n, f"stream: n_live {a.n_live()} / "
+          f"{s.n_live()} after {len(new_ids)} inserts and {len(dead)} "
+          f"deletes of {kept['ivf'].index.n}")
+    t0 = time.perf_counter()
+    gt2 = exact_live_gt(a, q, 10)
+    gt_s = time.perf_counter() - t0
+    bank()
+    zero_counts(counters)
+    serve2 = _stream_serve(backends, q, gt2, counters, live=live_ids)
+    stages["2_tail"] = {"serve": serve2, "recall@10": _stream_recalls(
+        backends, q, gt2, ef_ro, "2"), "mutate_s": mutate_s,
+        "live_gt_s": gt_s, "tail_fraction": a.tail_fraction()}
+    ids2 = {n: _ids_at(b, ds.queries[:2048], 64) for n, b in backends.items()}
+    _no_tombstone({n: i.cpu().numpy() for n, i in ids2.items()}, dead, "2")
+    for b in backends.values():
+        _inserted_find_themselves(b, fresh, new_ids, "2")
+    _check_twins("2", a, s, q)
+    wall, by_kernel = traced(lambda: serve_requests(
+        a, q, gt2, n_requests=512, ef=64))
+    stages["2_tail"]["trace_ef64"] = {
+        "traced_requests": 512, "traced_wall_s": wall,
+        "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+        "top_device_us": top_kernels(by_kernel, 5)}
+    bank()
+    vs_plain = row["kernels_vs_plain"] = {}
+    vs_plain["2"] = _stream_vs_plain(backends, q, [
+        ASSIGN_CHUNK, a.n_live() % ASSIGN_CHUNK or ASSIGN_CHUNK,
+        cfg["insert_batch"]], "2")
+    zero_counts(counters)       # the comparisons are not the path's
+
+    # stage 3: compact inline (and the twin: the same bytes), serve again
+    comp_s = {}
+    for name, b in (("stream_ivf", a), ("stream_sharded", s),
+                    ("stream_ivf_twin", twin)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.compact()
+        torch.cuda.synchronize()
+        comp_s[name] = time.perf_counter() - t0
+    sa, st = a.to_state_dict(), twin.to_state_dict()
+    differ = [k for k in sa if (sa[k].tobytes() != st[k].tobytes()
+                                if isinstance(sa[k], np.ndarray)
+                                else sa[k] != st[k])]
+    check(sa.keys() == st.keys() and not differ,
+          f"stream: one history compacted to different bytes: {differ}")
+    del sa, st, twin
+    check(a.n_live() == s.n_live() == len(live_ids) and a.epoch == 1,
+          "stream: compaction changed the live set")
+    serve3 = _stream_serve(backends, q, gt2, counters, live=live_ids)
+    stages["3_compacted"] = {
+        "serve": serve3, "recall@10": _stream_recalls(backends, q, gt2, ef_ro,
+                                                      "3"),
+        "compact_s": comp_s, "nlist": a.index.nlist,
+        "cell_pad": a.index.cell_pad}
+    ids3 = {n: _ids_at(b, ds.queries[:2048], 64).cpu().numpy()
+            for n, b in backends.items()}
+    _no_tombstone(ids3, dead, "3")
+    for b in backends.values():
+        _inserted_find_themselves(b, fresh, new_ids, "3")
+    _check_twins("3", a, s, q)
+    allc = {}
+    for name, b in backends.items():
+        ef = b.search_ef_ladder()[-1]
+        res = b.search(q[:64], SearchParams(k=10, ef=ef, rerank_factor=32))
+        allc[name] = recall_at_k(res.ids.cpu().numpy(), gt2[:64], 10)
+        check(allc[name] >= 0.99, f"stream {name} at the all-cells probe: "
+              f"recall@10 {allc[name]}")
+    stages["3_compacted"]["all_cells_recall@10"] = allc
+    bank()
+
+    # stage 4: base + deltas replayed onto the card, ids as stage 2's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replayed = ckpt.load_index(base_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = _ids_at(replayed, ds.queries[:2048], 64)
+    check(torch.equal(got, ids2["stream_ivf"]),
+          f"stream: base + deltas replayed differ from the live index on "
+          f"{int((got != ids2['stream_ivf']).any(1).sum())} of 2048 queries")
+    stages["4_replay"] = {
+        "base_bytes": sum(os.path.getsize(os.path.join(base_dir, f))
+                          for f in os.listdir(base_dir)
+                          if not f.startswith("delta_")),
+        "base_save_s": base_save_s, "delta_bytes": delta_bytes,
+        "delta_save_s": delta_s, "load_s": load_s, "seqno": replayed.seqno,
+        "ids_equal": True}
+    del replayed
+    tmp.cleanup()
+    bank()
+
+    # stage 5: serve while a second thread runs a background compaction
+    more = make_dataset("sift-128-euclidean", n_base=2 * cfg["insert_batch"],
+                        n_query=1, seed=cfg["seed"] + 1, device="cuda").base
+    a.insert(more)
+    live5 = set(a.live_vectors()[1].tolist())
+    gt5 = exact_live_gt(a, q, 10)
+    comp = BackgroundCompactor(a, warm=[(q[:64], SearchParams(k=10, ef=ef))
+                                        for ef in cfg["efs"]])
+    bank()
+    vs_plain["3"] = _stream_vs_plain(backends, q, [
+        ASSIGN_CHUNK, a.n_live() % ASSIGN_CHUNK or ASSIGN_CHUNK], "3")
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    check(comp.schedule(), "stream: the compactor did not start")
+    serve5, rounds = [], 0
+    while comp.in_flight or rounds == 0:
+        serve5.append(serve_requests(a, q, gt5, n_requests=cfg["requests"],
+                                     ef=64, keep_ids=True))
+        rounds += 1
+    check(comp.join(timeout=600), "stream: the background compaction hung")
+    bg_s = time.perf_counter() - t0
+    for r in serve5:
+        stray = set(np.unique(r.pop("ids")).tolist()) - live5 - {-1}
+        check(not stray, f"stream 5: ids outside the live set {sorted(stray)[:5]}")
+    check(a.epoch == 2 and a.n_live() == len(live5),
+          f"stream 5: epoch {a.epoch}, n_live {a.n_live()}")
+    stages["5_background"] = {
+        "serve_rounds": serve5, "compact_s": bg_s, "runs": comp.runs,
+        "launches": read_counts(counters),
+        "p99_ms_vs_stage1": max(r["p99_ms"] for r in serve5)
+        / stages["1_empty"]["serve"]["stream_ivf.ef64"]["p99_ms"]}
+    bank()
+    vs_plain["5"] = _stream_vs_plain({"stream_ivf": a}, q, [], "5")
+    zero_counts(counters)
+
+    s1 = stages["1_empty"]["serve"]
+    row["tail_overhead"] = {k: serve2[k]["qps"] / s1[k]["qps"] for k in s1}
+    row["compact_recovery"] = {k: serve3[k]["qps"] / s1[k]["qps"]
+                               for k in s1}
+    row["launches"] = dict(path_counts)
+    emit(row)
+    for kname in ("distance", "topk", "qdist"):
+        check(path_counts[kname] > 0, f"stream: no {kname} launch")
+    check(path_counts["qdist.cell_scan"] > 0, "stream: no cell scan")
+    del a, s, backends
+    torch.cuda.empty_cache()
+    return path_counts, vs_plain
+
+
+# ---------------------------------------------------------------------------
+# 7. the async multi-tenant tier at 1M (async-1M)
+# ---------------------------------------------------------------------------
+#: async-1M: gold holds recall 0.95 at weight 3 with a 20 ms deadline,
+#: bronze 0.6 at weight 1, both picked from tune-1M's frontier
+ASYNC_1M = {"tenants": "gold:0.95:3:20,bronze:0.6:1", "max_batch": 64,
+            "max_queue": 256, "burst": 768, "requests": 4096, "mix": 3,
+            "seed": 0}
+
+
+def phase_async(ds, ivf, frontier) -> dict:
+    """async-1M (see the docstring): returns the kernels' launches."""
+    import asyncio
+
+    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.serve import (AsyncServeTier, Overloaded, ServeRejection,
+                                   parse_tenant_specs, resolve_tenants)
+    from repro_torch.serve import scheduler
+
+    cfg = ASYNC_1M
+    tenants = resolve_tenants(parse_tenant_specs(cfg["tenants"]),
+                              target=ivf, frontier=frontier)
+    groups = {st.params for st in tenants.values()}
+    counters = kernel_counters()
+    tier = AsyncServeTier(ivf, tenants, max_batch=cfg["max_batch"],
+                          max_queue=cfg["max_queue"])
+    shapes, mixed = set(), []
+    real_exec = scheduler.execute_search_batch
+    real_pop = tier.batcher.queue.pop_batch
+
+    def recording_exec(search, queries, params, *, max_batch):
+        shapes.add((max_batch, queries.shape[1], params.k, params.ef))
+        return real_exec(search, queries, params, max_batch=max_batch)
+
+    def checked_pop(group, max_n):
+        batch = real_pop(group, max_n)
+        if any(tenants[r.tenant].params != group for r in batch):
+            mixed.append([r.tenant for r in batch])
+        return batch
+
+    tier.batcher.queue.pop_batch = checked_pop
+    scheduler.execute_search_batch = recording_exec
+    # every request a distinct row of the 10,000 queries in a seeded order,
+    # scored against its own gt row: most were not among tune-1M's swept
+    # 256, so the recall check holds each pick on queries it was not
+    # chosen on
+    rows = np.random.default_rng(cfg["seed"]).permutation(len(ds.queries))
+    names = ["gold"] * cfg["mix"] + ["bronze"]
+
+    async def episode():
+        burst = []
+        shed = 0
+        for i in range(cfg["burst"]):
+            try:
+                burst.append(tier.submit(ds.queries[rows[i % len(rows)]],
+                                         names[i % len(names)]))
+            except Overloaded:
+                shed += 1
+        tier.start()
+        burst_res = await asyncio.gather(*burst, return_exceptions=True)
+        found = {n: [] for n in tenants}
+        served = {n: [] for n in tenants}
+        lat = {n: [] for n in tenants}
+        t0 = time.perf_counter()
+        window = cfg["max_queue"]
+        for lo in range(0, cfg["requests"], window):
+            subs = []
+            for i in range(lo, min(lo + window, cfg["requests"])):
+                name = names[i % len(names)]
+                qi = int(rows[(cfg["burst"] + i) % len(rows)])
+                subs.append((name, qi, tier.submit(ds.queries[qi], name)))
+            for name, qi, fut in subs:
+                try:
+                    r = await fut
+                except ServeRejection:
+                    continue
+                found[name].append(r.ids)
+                served[name].append(qi)
+                lat[name].append(r.latency_ms)
+        wall = time.perf_counter() - t0
+        await tier.close(drain=True)
+        return len(burst), shed, burst_res, found, served, lat, wall
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    try:
+        admitted, shed, burst_res, found, served, lat, wall = asyncio.run(
+            episode())
+    finally:
+        scheduler.execute_search_batch = real_exec
+    launches = read_counts(counters)
+    tot = tier.telemetry.totals()
+    snap = tier.telemetry.snapshot()
+    check(admitted == cfg["max_queue"] and shed == cfg["burst"] - admitted,
+          f"async burst: {admitted} admitted, {shed} shed (typed "
+          f"Overloaded); want {cfg['max_queue']} and "
+          f"{cfg['burst'] - cfg['max_queue']}")
+    check(tot.accounted(), f"async accounting: admitted {tot.admitted} != "
+          f"served {tot.served} + shed_deadline {tot.shed_deadline} + "
+          f"shed_closed {tot.shed_closed}")
+    check(not mixed, f"async: batches mixed tenants' picks: {mixed[:3]}")
+    check(len(shapes) == len(groups),
+          f"async: {len(shapes)} batch shapes for {len(groups)} tenant "
+          f"groups: {sorted(shapes)}")
+    per = {}
+    for name, st in tenants.items():
+        ts = snap["tenants"][name]
+        rec = (recall_at_k(np.stack(found[name]),
+                           ds.gt[np.asarray(served[name])], 10)
+               if found[name] else float("nan"))
+        per[name] = {"pick_ef": st.params.ef,
+                     "swept_recall@10": st.point.recall,
+                     "served_recall@10": rec, "served": len(found[name]),
+                     "qps": len(found[name]) / wall,
+                     "p50_ms": float(np.percentile(lat[name], 50)),
+                     "p99_ms": float(np.percentile(lat[name], 99)),
+                     "queue_wait": ts["queue_wait"],
+                     "compute": ts["compute"],
+                     "shed_deadline": ts["shed_deadline"],
+                     "shed_overload": ts["shed_overload"]}
+        check(abs(rec - st.point.recall) <= 0.02,
+              f"async {name}: served recall {rec} vs its pick's swept "
+              f"{st.point.recall}")
+    emit({"phase": "async", "tenants": cfg["tenants"],
+          "max_queue": cfg["max_queue"], "max_batch": cfg["max_batch"],
+          "burst": {"submitted": cfg["burst"], "admitted": admitted,
+                    "shed_overload": shed,
+                    "deadline_shed": sum(isinstance(r, ServeRejection)
+                                         for r in burst_res)},
+          "steady": {"requests": cfg["requests"], "wall_s": wall,
+                     "qps": sum(p["served"] for p in per.values()) / wall},
+          "per_tenant": per, "batch_shapes": sorted(shapes),
+          "queue": snap["queue"], "totals": snap["totals"],
+          "launches": launches})
+    for kname in ("distance", "topk", "qdist"):
+        check(launches[kname] > 0, f"async: no {kname} launch")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# 6. the reference point at 20k, the optimized variant, the CLI driver
+# 8. the reference point at 20k, the optimized variant, the serve CLI
 # ---------------------------------------------------------------------------
 def phase_ref20k() -> None:
     import dataclasses
@@ -1180,12 +1771,81 @@ CLI_20K = [("graph", ["--backend", "graph"]),
                           "--n-shards", "2"])]
 
 
+#: the 20k streaming and async CLI episodes (the reference tests'
+#: episodes at 20k).  The drift episode inserts 1,100 vectors, the fewest
+#: past the 0.05 tail trigger, and holds the SLO 0.8: after compaction the
+#: drifted queries' recall tops out under 0.9 on the retune's ladder (int8
+#: scan, rerank factor 1), in the reference too, so 0.9 cannot be restored
+CLI_STREAM_20K = ["--backend", "stream_ivf", "--n-base", "20000",
+                  "--tail-cap", "2048", "--tune", "--target-recall", "0.8",
+                  "--drift-retune", "0.05", "--max-tail-frac", "0.05",
+                  "--stream-demo", "1100"]
+CLI_ASYNC_20K = ["--backend", "ivf", "--n-base", "20000", "--tune",
+                 "--async", "--tenants", "strict:0.9:4,lax:0.7",
+                 "--max-queue", "32", "--max-batch", "16"]
+
+
+def _captured(serve, argv) -> tuple[str, object]:
+    """serve.main(argv) with its standard output captured (and echoed to
+    standard error); returns (output, main's return value)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = serve.main(argv)
+    out = buf.getvalue()
+    sys.stderr.write(out)
+    return out, got
+
+
+def cli_episodes(serve) -> None:
+    """The 20k serve CLI's scripted streaming-drift and multi-tenant
+    episodes; each must print the reference tests' markers."""
+    import re
+    t0 = time.perf_counter()
+    out, post = _captured(serve, CLI_STREAM_20K)
+    drift_s = time.perf_counter() - t0
+    for marker in ("-> tail_frac", "drift: compacted", "-> recall_drift",
+                   "drift: retune ef", "slo restored"):
+        check(marker in out, f"serve --stream-demo: no {marker!r} line")
+    m = re.search(r"drift: post-retune recall=([0-9.]+) target=([0-9.]+)",
+                  out)
+    check(m is not None and float(m.group(1)) >= float(m.group(2)),
+          "serve --stream-demo: post-retune recall under the target")
+    emit({"phase": "ref20k.cli_stream_demo", "argv": CLI_STREAM_20K,
+          "seconds": drift_s, "post_retune_recall@10": post,
+          "lines": [ln for ln in out.splitlines()
+                    if ln.startswith(("drift:", "slo pick"))]})
+    t0 = time.perf_counter()
+    out, snap = _captured(serve, CLI_ASYNC_20K)
+    async_s = time.perf_counter() - t0
+    check(re.search(r"serve: overload burst admitted=32 shed=64 "
+                    r"\(typed Overloaded\)", out) is not None,
+          "serve --async: no deterministic overload line")
+    for name, target in (("strict", 0.9), ("lax", 0.7)):
+        m = re.search(rf"serve: tenant {name} recall=([\d.]+) "
+                      rf"target=([\d.]+) (ok|MISS)", out)
+        check(m is not None and float(m.group(1)) >= target
+              and m.group(3) == "ok", f"serve --async: tenant {name} line")
+    m = re.search(r"serve: closed served=(\d+) shed_overload=(\d+) "
+                  r"shed_deadline=(\d+) shed_closed=(\d+)", out)
+    check(m is not None and int(m.group(4)) == 0,
+          "serve --async: the drain left requests unserved")
+    for marker in ("serve: accounting ok", "serve: episode ok"):
+        check(marker in out, f"serve --async: no {marker!r} line")
+    emit({"phase": "ref20k.cli_async", "argv": CLI_ASYNC_20K,
+          "seconds": async_s, "queue": snap["queue"],
+          "lines": [ln for ln in out.splitlines()
+                    if ln.startswith("serve:")]})
+
+
 def cli_round_trips(serve) -> None:
     """The serve CLI at 20k: each backend built and served with
     --save-index here, then served with --load-index by a separate
     process each (all started together), at the same recall; --tune
-    --save-frontier then --load-frontier --target-recall 0.9; and
-    --filter-demo on ivf."""
+    --save-frontier then --load-frontier --target-recall 0.9;
+    --filter-demo on ivf; and the streaming-drift and multi-tenant
+    episodes (:func:`cli_episodes`)."""
     import re
     import tempfile
 
@@ -1252,6 +1912,7 @@ def cli_round_trips(serve) -> None:
           and demo[1.0] > 0.5, f"serve --filter-demo: {demo}")
     emit({"phase": "ref20k.cli_filter_demo",
           "recall@10_by_selectivity": {str(k): v for k, v in demo.items()}})
+    cli_episodes(serve)
 
 
 def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
@@ -1276,7 +1937,7 @@ def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. the CRINN RL loop
+# 9. the CRINN RL loop
 # ---------------------------------------------------------------------------
 RL_ITERS = 2
 KL_ROUNDING = 1e-6
@@ -1510,12 +2171,21 @@ def main() -> None:
     kernels = phase_kernels()
     launches, ds, kept = phase_main(n_base=1_000_000, n_query=10_000,
                                     n_requests=2048)
-    launches["tune"] = phase_tune(ds, kept)
-    del ds, kept
+    launches["tune"], frontier = phase_tune(ds, kept)
+    launches["stream"], stream_vs_plain = phase_stream(ds, kept)
+    launches["async"] = phase_async(ds, kept["ivf"], frontier)
+    del ds, kept, frontier
     torch.cuda.empty_cache()
     phase_ref20k()
     launches["rl"] = phase_rl()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
+    # the stream path's layouts, held against the plain versions there
+    for stage in stream_vs_plain.values():
+        err = stage["max_abs_err"]
+        kernels["distance"]["max_abs_err"] = max(
+            kernels["distance"]["max_abs_err"], err["distance"])
+        scan = kernels["qdist"]["cell_scan"]
+        scan["max_abs_err"] = max(scan["max_abs_err"], err["qdist.cell_scan"])
     for name, row in kernels.items():
         by_path = {path: n[name] for path, n in launches.items() if n[name]}
         check(by_path, f"{name} was launched on no path")

@@ -231,9 +231,9 @@ class AnnsIndex(Protocol):
 class MutableAnnsIndex(AnnsIndex, Protocol):
     """A backend that stays correct under online mutation.
 
-    The streaming contract (the reference's ``repro.anns.stream``, not
-    ported yet): ``insert`` lands new vectors in a fixed-capacity fp32
-    delta tail scanned exactly alongside the built structure, ``delete`` tombstones ids through the
+    The streaming contract (:mod:`repro_torch.anns.stream`): ``insert``
+    lands new vectors in a fixed-capacity fp32 delta tail scanned exactly
+    alongside the built structure, ``delete`` tombstones ids through the
     same validity mask that already guards pad slots (a tombstoned id can
     never appear in a :class:`SearchResult`), and ``compact`` folds the
     tail back into the built layout deterministically.  ``seqno`` is the
@@ -272,3 +272,10 @@ class MutableAnnsIndex(AnnsIndex, Protocol):
         trigger quantity (tail scans are exact but O(tail))."""
         ...
 
+
+def supports_mutation(backend) -> bool:
+    """True when ``backend`` implements the streaming mutation protocol
+    (duck-typed: the :class:`MutableAnnsIndex` surface)."""
+    return all(callable(getattr(backend, m, None))
+               for m in ("insert", "delete", "compact", "n_live",
+                         "tail_fraction"))

@@ -51,8 +51,7 @@ class VariantConfig:
                                      # (oversized cells split at build)
     # -- sharded backend: device-mesh scale-out knob ---------------------
     n_shards: int = 1                # cell-granular shards of the layout
-    # -- streaming backends (not ported yet; kept so a variant describes
-    #    itself as in the reference) -------------------------------------
+    # -- streaming backends (repro_torch.anns.stream) --------------------
     tail_cap: int = 256              # delta-tail capacity (per shard for
                                      # stream_sharded); 0 = default
 
@@ -95,8 +94,7 @@ SHARDED_BASELINE = dataclasses.replace(IVF_BASELINE, backend="sharded",
 
 # One canonical baseline variant per ported backend family: the reference
 # point each family's reward is normalised against.  Only registered
-# families may appear (``__post_init__`` rejects the rest); the streaming
-# baselines come with their slice.
+# families may appear (``__post_init__`` rejects the rest).
 FAMILY_BASELINE_VARIANTS = {
     "graph": GLASS_BASELINE,
     "brute_force": dataclasses.replace(GLASS_BASELINE,
@@ -105,6 +103,10 @@ FAMILY_BASELINE_VARIANTS = {
         GLASS_BASELINE, backend="quantized_prefilter", rerank_factor=2),
     "ivf": IVF_BASELINE,
     "sharded": SHARDED_BASELINE,
+    # the streaming family serves the same layouts, mutable
+    "stream_ivf": dataclasses.replace(IVF_BASELINE, backend="stream_ivf"),
+    "stream_sharded": dataclasses.replace(SHARDED_BASELINE,
+                                          backend="stream_sharded"),
 }
 
 

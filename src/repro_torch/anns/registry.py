@@ -15,8 +15,9 @@ Built-ins ported so far:
                               ``qdist`` CUDA kernel, fp32 rerank.
 - ``"sharded"``             — the ivf layout sliced into whole-cell shards,
                               unrolled on one device.
-
-The reference's streaming families are not ported yet.
+- ``"stream_ivf"`` /
+  ``"stream_sharded"``      — the mutable forms (``repro_torch.anns.stream``):
+                              delta tail, tombstones, compaction.
 
 Adding a backend::
 
@@ -50,6 +51,8 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "quantized_prefilter": "repro_torch.anns.backends.quantized",
     "ivf": "repro_torch.anns.backends.ivf",
     "sharded": "repro_torch.anns.backends.sharded",
+    "stream_ivf": "repro_torch.anns.stream.backends",
+    "stream_sharded": "repro_torch.anns.stream.backends",
 }
 
 

@@ -30,14 +30,17 @@ BIG = 3.0e38
 
 
 def _qdist(q: torch.Tensor, vecs: torch.Tensor, metric: str) -> torch.Tensor:
-    """q: (B, d) fp32, vecs: (B, C, d) -> (B, C) distances (smaller=closer)."""
+    """q: (B, d) fp32, vecs: (B, C, d), or (C, d) shared by every query
+    (one product, each norm taken once) -> (B, C) distances
+    (smaller=closer)."""
     vecs = vecs.float()
-    dots = torch.bmm(vecs, q[:, :, None])[..., 0]
+    shared = vecs.dim() == 2
+    dots = q @ vecs.T if shared else torch.bmm(vecs, q[:, :, None])[..., 0]
     if metric == "ip":
         return -dots
     qn = torch.sum(q * q, dim=-1)[:, None]
     vn = torch.sum(vecs * vecs, dim=-1)
-    return qn + vn - 2.0 * dots
+    return qn + (vn[None, :] if shared else vn) - 2.0 * dots
 
 
 def smallest(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

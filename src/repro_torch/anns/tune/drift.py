@@ -94,9 +94,10 @@ class DriftMonitor:
                               else float(max_tail_frac))
         self.alpha = float(alpha)
         self.min_observations = int(min_observations)
-        #: set while a scheduled compaction is in flight (the streaming
-        #: slice's background compactor, not ported yet) — both triggers hold
-        #: their fire so the tail verdict can't re-fire mid-fix
+        #: set while a scheduled compaction is in flight (the
+        #: :class:`repro_torch.anns.stream.BackgroundCompactor`) — both
+        #: triggers hold their fire so the tail verdict can't re-fire
+        #: mid-fix
         self.compaction_pending = False
         self.rebase(point)
 

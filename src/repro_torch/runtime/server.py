@@ -7,12 +7,14 @@ refinement at the serving layer.  The batch-forming core — query
 validation, the ladder-snapped batch-``k`` policy and the
 pad-search-slice step — lives in module functions (:func:`validate_query`,
 :func:`batch_k_policy`, :func:`execute_search_batch`), as in
-``repro.runtime.server``, so the batches the two packages form are the
-same.
+``repro.runtime.server``, shared with the async multi-tenant tier
+(:mod:`repro_torch.serve.scheduler`), so the batches the two packages and
+both serving fronts form are the same.
 
 SLO mode (frontier-driven params) and the drift monitor come from the
-tuner (:mod:`repro_torch.anns.tune`); the background compactor comes
-with the streaming slice.
+tuner (:mod:`repro_torch.anns.tune`); a tail verdict schedules the
+streaming backends' :class:`~repro_torch.anns.stream.BackgroundCompactor`
+when one is attached.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class AnnsResponse:
 
 
 # ---------------------------------------------------------------------------
-# batch-forming core
+# batch-forming core (shared with repro_torch.serve.scheduler)
 # ---------------------------------------------------------------------------
 
 def search_callable(target):
@@ -53,10 +55,16 @@ def search_callable(target):
 
 def index_size(target) -> int | None:
     """Vectors currently searchable on ``target`` (Engine or backend),
-    re-read per batch; None when nothing is built yet."""
+    re-read per batch, never cached: a streaming backend mutates while it
+    serves, and a size captured earlier would clamp ``k`` against a stale
+    ``n``.  None when nothing is built yet."""
     idx = getattr(target, "index", None)
     if idx is None:
         return None
+    backend = target.backend if isinstance(target, Engine) else target
+    n_live = getattr(backend, "n_live", None)   # mutable backends
+    if callable(n_live):
+        return int(n_live())
     if isinstance(idx, torch.Tensor):           # raw base matrix
         return int(idx.shape[0])
     return int(idx.n)                           # GraphIndex, ivf, sharded
@@ -174,6 +182,7 @@ class AnnsServer:
         self.queue: list[AnnsRequest] = []
         self.served = 0
         self.drift_monitor = None
+        self.compactor = None
 
     @property
     def backend(self):
@@ -200,18 +209,44 @@ class AnnsServer:
         :class:`repro_torch.anns.tune.DriftMonitor` (fed via
         :meth:`observe_served`)."""
         self.drift_monitor = monitor
+        if self.compactor is not None:
+            self.compactor.attach_monitor(monitor)
+
+    def attach_compactor(self, compactor) -> None:
+        """Let tail-trigger drift verdicts schedule background compaction
+        (:class:`repro_torch.anns.stream.BackgroundCompactor`) instead of
+        leaving the caller to run ``compact()`` inline.  The attached
+        drift monitor registers for in-flight suppression, and — unless
+        the compactor already has a warm spec — the post-swap search is
+        warmed at this server's batch shape and current params."""
+        self.compactor = compactor
+        if self.drift_monitor is not None:
+            compactor.attach_monitor(self.drift_monitor)
+        if compactor.warm is None:
+            def _warm_spec():
+                d = index_dim(self.engine)
+                if d is None:
+                    return []
+                return [(np.zeros((self.max_batch, d), np.float32),
+                         self.params)]
+            compactor.warm = _warm_spec
 
     def observe_served(self, *, recall: float,
                        latency_ms: float | None = None):
         """Fold one served window's measured telemetry into the attached
         drift monitor, with the backend's live tail fraction where it has
-        one; returns the monitor's verdict (None without a monitor)."""
+        one; returns the monitor's verdict (None without a monitor).  A
+        ``tail_frac`` verdict schedules the attached background compactor
+        (when one is attached)."""
         if self.drift_monitor is None:
             return None
         tail_fn = getattr(self.backend, "tail_fraction", None)
         tail = float(tail_fn()) if callable(tail_fn) else 0.0
-        return self.drift_monitor.observe(
+        verdict = self.drift_monitor.observe(
             recall=recall, latency_ms=latency_ms, tail_fraction=tail)
+        if self.compactor is not None:
+            self.compactor.maybe_compact(verdict)
+        return verdict
 
     def apply_operating_point(self, point) -> None:
         """Adopt a re-chosen operating point while serving: params snap

@@ -290,10 +290,18 @@ def test_load_index_refuses_a_future_state_format(tmp_path, ds):
 
 
 def test_load_index_refuses_streaming_deltas(tmp_path, ds):
+    """Deltas replay only onto a streaming base (``test_torch_stream.py``
+    holds the replay itself): a read-only backend's directory holding a
+    delta is refused, as is a ``delta_*`` directory that is no delta."""
     _, path = _saved_by_reference(tmp_path, ds, "brute_force", zstd=False)
-    jax_checkpoint.save_checkpoint(os.path.join(path, "delta_000000000003"),
-                                   {"tail": np.zeros(2, np.float32)}, 3)
-    with pytest.raises(NotImplementedError, match="streaming"):
+    sub = os.path.join(path, "delta_000000000003")
+    jax_checkpoint.save_checkpoint(
+        sub, {"tail": np.zeros(2, np.float32)}, 3,
+        extra={"anns_index_delta_meta": {"seqno": 3, "delta_format": 1}})
+    with pytest.raises(ValueError, match="streaming backend"):
+        ckpt.load_index(path, device="cpu")
+    jax_checkpoint.save_checkpoint(sub, {"tail": np.zeros(2, np.float32)}, 3)
+    with pytest.raises(KeyError, match="not an index delta"):
         ckpt.load_index(path, device="cpu")
 
 

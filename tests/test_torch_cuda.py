@@ -387,3 +387,85 @@ def test_tune_sweep_and_slo_server_on_the_card(dev):
     found = np.stack([r.ids for r in srv.run()])
     assert recall_at_k(found, ds.gt, 10) == pytest.approx(
         srv.operating_point.recall, abs=1e-9)
+
+
+def _stream_on_card(dev, name="stream_ivf", n_base=3000):
+    import dataclasses
+
+    from repro_torch.anns import make_dataset, registry
+    from repro_torch.anns.engine import family_baseline
+    ds = make_dataset("sift-128-euclidean", n_base=n_base, n_query=64,
+                      device=dev)
+    v = dataclasses.replace(family_baseline(name), nlist=32, tail_cap=256)
+    b = registry.create(name, v, metric=ds.metric, device=dev)
+    b.build(ds.base)
+    return ds, b
+
+
+@pytest.mark.parametrize("name", ["stream_ivf", "stream_sharded"])
+def test_stream_lifecycle_on_the_card(dev, tmp_path, name):
+    """Insert, delete, base + delta checkpoint and compaction of a card
+    index: the kernels launch, inserted vectors come back as their own
+    ids, no tombstone surfaces, the replay and the CPU copy agree."""
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.anns import SearchParams
+    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.anns.stream import exact_live_gt
+    from repro_torch.kernels.qdist import ops as qdist_ops
+    ds, b = _stream_on_card(dev, name)
+    ckpt.save_index(str(tmp_path / "idx"), b)
+    rng = np.random.default_rng(1)
+    extra = rng.standard_normal((100, 128)).astype(np.float32)
+    new = b.insert(extra)
+    dead = rng.choice(3000, 200, replace=False)
+    assert b.delete(dead) == 200
+    ckpt.save_index_delta(str(tmp_path / "idx"), b)
+    p = SearchParams(k=10, ef=64)
+    for stage in ("mutated", "compacted"):
+        before = qdist_ops.scan_launches
+        ids = b.search(extra, SearchParams(k=1, ef=64)).ids.cpu().numpy()
+        assert qdist_ops.scan_launches > before
+        np.testing.assert_array_equal(ids[:, 0], new)
+        got = b.search(ds.queries, p).ids.cpu().numpy()
+        assert not set(got.ravel().tolist()) & set(dead.tolist())
+        exact = b.search(ds.queries, SearchParams(
+            k=10, ef=64 * b.index.nlist, rerank_factor=8)).ids.cpu().numpy()
+        assert recall_at_k(exact, exact_live_gt(b, ds.queries, 10),
+                           10) >= 0.99
+        if stage == "mutated":
+            loaded = ckpt.load_index(str(tmp_path / "idx"))
+            on_cpu = ckpt.load_index(str(tmp_path / "idx"), device="cpu")
+            assert torch.equal(loaded.search(ds.queries, p).ids.cpu(),
+                               torch.from_numpy(got))
+            assert loaded.n_live() == on_cpu.n_live() == b.n_live()
+            b.compact()
+            assert b.epoch == 1 and b.tail_fraction() == 0.0
+
+
+def test_stream_fenced_swap_on_the_card(dev):
+    """Searches on the card racing background compactions (prepare, warm
+    and commit on another thread, the default stream) return ids of the
+    live set only, at exact-search recall."""
+    import numpy as np
+    from repro_torch.anns import SearchParams
+    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.anns.stream import BackgroundCompactor, exact_live_gt
+    ds, b = _stream_on_card(dev)
+    rng = np.random.default_rng(2)
+    b.insert(rng.standard_normal((120, 128)).astype(np.float32))
+    b.delete(rng.choice(3000, 100, replace=False))
+    live = set(b.live_vectors()[1].tolist())
+    params = SearchParams(k=10, ef=64 * b.index.nlist, rerank_factor=8)
+    gt = exact_live_gt(b, ds.queries, 10)
+    comp = BackgroundCompactor(b, warm=(ds.queries, params), nice=None)
+    results = []
+    for _ in range(3):
+        assert comp.schedule()
+        while comp.in_flight:
+            results.append(b.search(ds.queries, params).ids.cpu().numpy())
+        assert comp.join(timeout=120)
+    assert b.epoch == 3 and comp.runs == 3 and results
+    for ids in results:
+        assert set(ids.ravel().tolist()) <= live
+        assert recall_at_k(ids, gt, 10) >= 0.99

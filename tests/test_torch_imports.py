@@ -31,6 +31,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.anns.ivf.kmeans" in mods
     assert {"repro_torch.ckpt", "repro_torch.ckpt.index_io",
             "repro_torch.anns.tune"} <= set(mods)
+    assert {"repro_torch.anns.stream", "repro_torch.anns.stream.backends",
+            "repro_torch.anns.stream.compactor", "repro_torch.serve",
+            "repro_torch.serve.scheduler"} <= set(mods)
     # the H100 machine has neither msgpack nor zstandard
     code = (
         "import sys, importlib\n"
@@ -48,6 +51,49 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "               or m.startswith(('jax.', 'repro.', 'msgpack.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_streaming_deltas_and_the_serving_tier_run_with_jax_blocked(tmp_path):
+    """A stream_ivf mutated, saved as base + delta and replayed, then served
+    through the continuous batcher — with jax, the reference, msgpack and
+    zstandard unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'repro', 'msgpack', 'zstandard'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(SRC)!r})\n"
+        "import numpy as np\n"
+        "from repro_torch import ckpt\n"
+        "from repro_torch.anns import SearchParams, registry\n"
+        "from repro_torch.anns.engine import VariantConfig\n"
+        "from repro_torch.serve import (ContinuousBatcher, TenantSpec,\n"
+        "                               resolve_tenants)\n"
+        "x = np.random.default_rng(0).standard_normal((300, 16))\n"
+        "x = x.astype(np.float32)\n"
+        "v = VariantConfig(backend='stream_ivf', nlist=8, tail_cap=32)\n"
+        "b = registry.create('stream_ivf', v, device='cpu')\n"
+        "b.build(x[:280])\n"
+        f"path = {str(tmp_path / 'idx')!r}\n"
+        "ckpt.save_index(path, b)\n"
+        "b.insert(x[280:])\n"
+        "b.delete(np.arange(10))\n"
+        "ckpt.save_index_delta(path, b)\n"
+        "r = ckpt.load_index(path, device='cpu')\n"
+        "assert r.n_live() == b.n_live() == 290\n"
+        "t = resolve_tenants([TenantSpec('a')],\n"
+        "                    default_params=SearchParams(k=5, ef=64))\n"
+        "cb = ContinuousBatcher(r, t, max_batch=4)\n"
+        "tk = [cb.submit(q, 'a') for q in x[285:290]]\n"
+        "assert cb.drain() == 5\n"
+        "assert [k.get().ids[0] for k in tk] == list(range(285, 290))\n"
+        "assert not any(m in ('jax', 'msgpack', 'zstandard')\n"
+        "               or m.startswith(('jax.', 'repro.', 'msgpack.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -95,6 +141,23 @@ def test_serve_main_raises_without_a_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--n-base", "50", "--n-query", "4", "--n-requests", "4"])
+
+
+@pytest.mark.parametrize("mode", [
+    ["--backend", "stream_ivf", "--tail-cap", "64", "--tune",
+     "--target-recall", "0.5", "--drift-retune", "0.1",
+     "--max-tail-frac", "0.1", "--stream-demo", "20"],
+    ["--backend", "ivf", "--async"],
+    ["--backend", "ivf", "--async", "--tune", "--tenants", "a:0.5,b:0.3",
+     "--max-queue", "8", "--deadline-ms", "50"],
+])
+def test_serve_streaming_and_async_modes_raise_without_a_card(no_card, mode,
+                                                               capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--n-base", "50", "--n-query", "4", "--n-requests", "4",
+                    *mode])
+    assert "served" not in capsys.readouterr().out
 
 
 def test_train_crinn_main_defaults_to_cuda_and_raises_without_a_card(no_card,
