@@ -102,6 +102,26 @@ non-zero without its last line):
                before and read just after.  The first update is held
                against the same GRPO + AdamW step on the CPU from the same
                weights and batch.
+10. train   -- ``repro_torch.launch.train`` at full width (crinn-policy-100m,
+               bf16, 24 GRPO steps of seq 128 x batch 8, block remat, a
+               checkpoint every 6 steps, each save timed on the caller's
+               thread); ``--resume --steps 4`` in a separate process
+               (``resumed from step 24``); a failure drill (failure at
+               step 9, checkpoints every 4: step 8 replayed at an equal
+               loss); the first step that moves the weights on the card
+               against the CPU (fp32; loss within 1e-5 relative, weights
+               within 1e-6 on >= 99.99%); one lm_loss step at seq 1024 x
+               batch 8 with remat none and block (losses at rtol 1e-6,
+               gradients within 1e-5 in norm, both peaks); h2o-danube-1.8b
+               at full width (24 layers, d 2,560, 32 / 8 heads of 80): 2
+               lm_loss trainer steps at seq 512 x batch 4, then a
+               GenerateServer call of (4, 256) prompts + 32 greedy steps
+               whose counted launches must be 24 flash (one a layer), and
+               in fp32 prefill + one decode step against the forward's
+               last logits at 1e-3.  The counters are set to 0 just before
+               and read just after the GenerateServer call (the training
+               path launches no kernel of the port: its attention is the
+               reference's chunked PyTorch path, which has a backward).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -131,10 +151,12 @@ import torch  # noqa: E402
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
 #: outside the tensor cores, and TF32 FLOP/s on them (distance and flash
 #: take their products in 3xTF32, three TF32 passes per product; qdist in
-#: two, its int8 codes being exact in TF32)
+#: two, its int8 codes being exact in TF32), and bf16 FLOP/s on them (the
+#: least time of a product of bf16 inputs, flash's at the danube prefill)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
 TF32_FLOPS_S = 495e12
+BF16_FLOPS_S = 989e12
 
 #: recall@10 of the JAX package on the CPU, sift-128 at 20,000 x 256, seed 0
 #: (the ivf family's: IVF_BASELINE and SHARDED_BASELINE at 1, 2, 4 shards)
@@ -700,14 +722,18 @@ def kernel_qdist(gen) -> dict:
 
 
 #: the reference's five shapes (tests/test_kernels.py), ragged S, D 80, a
-#: group of 4, window 64, softcap 30, and the policy's prefill shapes:
+#: group of 4, window 64, softcap 30, the policy's prefill shapes and
+#: GenerateServer's h2o-danube-1.8b prefill (train phase):
 #: (B, S, Hq, Hk, D, window, softcap)
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0, 0.0), (1, 256, 8, 8, 128, 0, 50.0),
                 (2, 256, 4, 1, 80, 128, 0.0), (1, 512, 2, 2, 64, 0, 0.0),
                 (1, 128, 16, 4, 128, 64, 30.0), (2, 35, 8, 2, 80, 0, 0.0),
                 (1, 200, 4, 1, 64, 64, 30.0), (2, 333, 8, 2, 32, 0, 0.0),
-                (6, 35, 12, 12, 64, 0, 0.0), (6, 128, 12, 12, 64, 0, 0.0)]
+                (6, 35, 12, 12, 64, 0, 0.0), (6, 128, 12, 12, 64, 0, 0.0),
+                (4, 256, 32, 8, 80, 4096, 0.0)]
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+#: (B, S, Hq, Hk, D) of GenerateServer's h2o-danube-1.8b prefill
+DANUBE_PREFILL = (4, 256, 32, 8, 80)
 #: the folding at its limits (a group of 4, of 64), S of 1 and of 65 (a
 #: second kv tile with one key), checked on the card only
 FLASH_EDGE_SHAPES = [(3, 65, 16, 4, 64, 0, 0.0), (2, 65, 64, 1, 64, 0, 0.0),
@@ -791,6 +817,33 @@ def kernel_flash(gen) -> dict:
                                "library_kernels": top_kernels(lib_kernels, 3),
                                "per_call_event_ms": event_ms}
         del args
+    # GenerateServer's prefill of h2o-danube-1.8b (train phase): bf16,
+    # GQA 32 / 8, D 80, window 4096 (wider than S)
+    B, S, Hq, Hk, D = DANUBE_PREFILL
+    args = qkv(B, S, Hq, Hk, D, torch.bfloat16, n=reps)
+    kw = dict(q_scale=D ** -0.5, window=4096)
+
+    def gqa_sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=D ** -0.5, enable_gqa=True)
+
+    lib_ms, lib_kernels = device_profile(gqa_sdpa, args)
+    nbytes = 2.0 * B * S * D * (2 * Hq + 2 * Hk)
+    products = 4.0 * B * Hq * D * S * (S + 1) / 2
+    other = 4.0 * B * Hq * S * (S + 1) / 2
+    t_ops = max(products / BF16_FLOPS_S, other / FP32_FLOPS_S)
+    danube = {"shape": [B, S, Hq, Hk, D], "dtype": "bfloat16",
+              "ms": device_ms(lambda q, k, v: flash_ops.causal_attention(
+                  q, k, v, **kw), args),
+              "plain_ms": device_ms(lambda q, k, v: flash_ref(q, k, v, **kw),
+                                    args),
+              "bound_ms": 1e3 * max(nbytes / HBM_BYTES_S, t_ops),
+              "bound_by": ("bytes" if nbytes / HBM_BYTES_S >= t_ops
+                           else "operations"),
+              "library_ms": lib_ms,
+              "library_kernels": top_kernels(lib_kernels, 3)}
+    del args
     main_shape, long_shape = timed
     return {"name": "flash", "route": "cuda",
             "source": "src/repro_torch/csrc/flash.cu",
@@ -801,7 +854,8 @@ def kernel_flash(gen) -> dict:
             **timed[main_shape],
             "library_call": "F.scaled_dot_product_attention(is_causal=True)",
             "shape": list(main_shape), "dtype": "float32",
-            "at_shape_6x128x12x64": timed[long_shape]}
+            "at_shape_6x128x12x64": timed[long_shape],
+            "at_danube_prefill": danube}
 
 
 # ---------------------------------------------------------------------------
@@ -2165,6 +2219,340 @@ def phase_rl() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10. the single-device trainer, the dense zoo and GenerateServer
+# ---------------------------------------------------------------------------
+#: launch.train's run: crinn-policy-100m, 24 steps of seq 128 x batch 8,
+#: a checkpoint every 6 steps (launch.train's max(5, steps // 4))
+TRAIN_ARGV = ["--arch", "crinn-policy-100m", "--seq", "128",
+              "--global-batch", "8"]
+TRAIN_STEPS, RESUME_STEPS = 24, 4
+#: the failure drill: a failure injected at step 9, checkpoints every 4
+DRILL = {"fail_at": 9, "ckpt_every": 4, "steps": 12}
+DANUBE = "h2o-danube-1.8b"
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _policy_trainer(cfg, ckpt_dir: str, device: str, **kw):
+    """A Trainer as launch.train builds one (seq 128: chunks of 128, block
+    remat, warmup steps // 10), on init_params from seed 0."""
+    from repro_torch.core.grpo import GRPOConfig
+    from repro_torch.models import Runtime, model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    rt = Runtime(attn_chunk=128, logit_chunk=128, remat="block")
+    gen = torch.Generator(device=device).manual_seed(0)
+    lm = model.init_params(gen, cfg, device)
+    steps = kw.pop("total_steps", TRAIN_STEPS)
+    tcfg = TrainerConfig(total_steps=steps, warmup_steps=max(1, steps // 10),
+                         ckpt_dir=ckpt_dir, **kw)
+    return Trainer(cfg, rt, lm, tcfg=tcfg, gcfg=GRPOConfig())
+
+
+def train_card_vs_cpu(tmp: str) -> dict:
+    """The first trainer step that moves the weights (step 1: step 0's
+    learning rate is 0 under the warmup) of crinn-policy-100m in fp32, on
+    the card and on the CPU from the same weights, AdamW state and
+    PromptPipeline batch: the loss within 1e-5 relative, the weights within
+    1e-6 on >= 99.99% of elements and within 2.5 lr on all, as phase rl
+    holds its first update."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PromptPipeline
+    cfg = dataclasses.replace(get_config("crinn-policy-100m"), dtype="float32")
+    pipe = PromptPipeline(seq_len=128, global_batch=8)
+    big = {"ckpt_every": 10 ** 6}
+    card = _policy_trainer(cfg, os.path.join(tmp, "card"), "cuda", **big)
+    card.run(pipe.batch, steps=1)
+    before = {n: p.detach().cpu().clone() for n, p in card.params.items()}
+    state = _cpu_copy(card.opt_state)
+    card.run(pipe.batch, steps=1)
+    t0 = time.perf_counter()
+    cpu = _policy_trainer(cfg, os.path.join(tmp, "cpu"), "cpu", **big)
+    with torch.no_grad():
+        for n, p in cpu.params.items():
+            p.copy_(before[n])
+    cpu.opt_state, cpu.step = state, 1
+    cpu.run(pipe.batch, steps=1)
+    diff = torch.cat([(card.params[n].detach().cpu() - p.detach()).abs().flatten()
+                      for n, p in cpu.params.items()])
+    lr = card.metrics_log[-1]["lr"]
+    out = {"step": 1, "lr": lr, "loss_card": card.metrics_log[-1]["loss"],
+           "loss_cpu": cpu.metrics_log[-1]["loss"],
+           "max_abs_diff": float(diff.max()),
+           "share_within_1e-6": float((diff <= 1e-6).double().mean()),
+           "elements": diff.numel(), "cpu_seconds": time.perf_counter() - t0}
+    out["loss_rel_diff"] = (abs(out["loss_card"] - out["loss_cpu"])
+                            / abs(out["loss_cpu"]))
+    check(lr > 0, "step 1's learning rate is 0")
+    check(out["loss_rel_diff"] <= 1e-5 and out["share_within_1e-6"] >= 0.9999
+          and out["max_abs_diff"] <= 2.5 * lr,
+          f"the card's trainer step differs from the CPU's: {out}")
+    return out
+
+
+def train_remat(tmp: str) -> dict:
+    """One lm_loss step of crinn-policy-100m at seq 1024 x batch 8 with
+    remat none and block: losses at rtol 1e-6, gradients within 1e-5
+    relative in norm; both peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, model
+    cfg = get_config("crinn-policy-100m")
+    lm = model.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           "cuda")
+    toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, 1024, 8).batch(0),
+                           device="cuda")
+    params = list(lm.parameters())
+    out, grads = {}, {}
+    for remat in ("none", "block"):
+        rt = Runtime(attn_chunk=512, logit_chunk=512, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = model.lm_loss(lm, {"tokens": toks}, rt)
+        grads[remat] = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[remat] = {"loss": float(loss.detach()),
+                      "seconds": time.perf_counter() - t0,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(grads["block"], grads["none"]))
+    den = sum(float(b.float().square().sum()) for b in grads["none"])
+    out["grad_rel_diff"] = (num / den) ** 0.5
+    out["loss_rel_diff"] = (abs(out["block"]["loss"] - out["none"]["loss"])
+                            / abs(out["none"]["loss"]))
+    check(out["loss_rel_diff"] <= 1e-6 and out["grad_rel_diff"] <= 1e-5,
+          f"remat block differs from none: {out}")
+    return out
+
+
+def train_danube(tmp: str, counters) -> tuple[dict, dict]:
+    """h2o-danube-1.8b at full width in its dtype (bf16): 2 lm_loss trainer
+    steps (seq 512 x batch 4, block remat, no checkpoint; the second
+    traced), then a
+    GenerateServer call of (4, 256) prompts + 32 greedy steps, its flash
+    launches counted (one per layer); then, in fp32, prefill + one decode
+    step against the forward's last logits at 1e-3.  Returns (the row, the
+    kernels' launches over the GenerateServer call)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.server import GenerateServer
+    cfg = get_config(DANUBE)
+    rt = Runtime(attn_chunk=512, logit_chunk=512, remat="block")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = model.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           "cuda")
+    pipe = TokenPipeline(cfg.vocab_size, 512, 4)
+    tr = Trainer(cfg, rt, lm, tcfg=TrainerConfig(
+        total_steps=2, warmup_steps=1, ckpt_every=10 ** 6,
+        ckpt_dir=os.path.join(tmp, "danube")),
+        loss_fn=lambda m, b: model.lm_loss(m, b, rt))
+    def batch(step):
+        return {"tokens": pipe.batch(step)}
+
+    tr.run(batch, steps=1)
+    wall, by_kernel = traced(lambda: tr.run(batch, steps=1))   # step 1
+    log = tr.metrics_log
+    row = {"arch": DANUBE, "param_count": cfg.param_count(),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
+           "losses": [r["loss"] for r in log],
+           "step_seconds": [r["dt"] for r in log],
+           "train_peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "step_trace": {"step": 1, "wall_s": wall,
+                          "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+                          "top_device_us": top_kernels(by_kernel, 6)}}
+    check(len(log) == 2 and all(np.isfinite(r["loss"]) for r in log),
+          f"{DANUBE} losses {row['losses']}")
+    del tr, log
+    torch.cuda.empty_cache()
+
+    B, S, Hq, Hk, D = DANUBE_PREFILL
+    n_new = 32
+    prompts = TokenPipeline(cfg.vocab_size, S, B, seed=1).batch(0)
+    srv = GenerateServer(cfg, lm, rt, batch=B, max_seq=S + n_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, n_new)
+    gen_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    row["generate"] = {"prompts": [B, S], "new_tokens": n_new,
+                       "seconds": gen_s, "tokens_per_s": B * n_new / gen_s,
+                       "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                       "launches": launches}
+    check(toks.shape == (B, n_new) and ((toks >= 0)
+                                        & (toks < cfg.padded_vocab)).all(),
+          f"GenerateServer tokens {toks.shape}")
+    check(launches["flash"] == cfg.num_layers and launches["distance"] == 0
+          and launches["topk"] == 0 and launches["qdist"] == 0,
+          f"GenerateServer launched {launches}; the prefill should launch "
+          f"flash once per layer ({cfg.num_layers})")
+    wall, by_kernel = traced(lambda: srv.generate(prompts, n_new))
+    flash_us = sum(us for name, us in by_kernel.items() if "flash" in name)
+    row["generate"]["trace"] = {
+        "wall_s": wall, "flash_device_us": flash_us,
+        "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+        "top_device_us": top_kernels(by_kernel, 6)}
+    del srv, lm
+    torch.cuda.empty_cache()
+
+    # decode matches forward at full width (tests/test_models_smoke.py:76)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg32, "cuda")
+    toks = torch.as_tensor(prompts[:2], device="cuda")
+    with torch.no_grad():
+        hidden, _ = model.forward_train(lm, toks, rt)
+        want = lm.embed.logits(hidden[:, -1:])[:, 0]
+    caches = model.init_cache(cfg32, 2, S + 8, device="cuda")
+    _, caches, clen = model.prefill(lm, toks[:, :-1], rt, caches)
+    got, _, _ = model.decode_step(lm, toks[:, -1:], rt, caches, clen)
+    err = float((got - want).abs().max())
+    row["decode_vs_forward"] = {"dtype": "float32", "shape": [2, S],
+                                "max_abs_err": err,
+                                "logits_abs_max": float(want.abs().max())}
+    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-3)),
+          f"{DANUBE}: prefill + decode differs from the forward: {err}")
+    del lm, caches, hidden
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_train() -> dict:
+    """``repro_torch.launch.train`` at full width, its resume in a separate
+    process, a failure drill, the card against the CPU, remat, and
+    h2o-danube-1.8b's trainer steps and GenerateServer call; returns the
+    kernels' launches on the path (GenerateServer's)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PromptPipeline
+    from repro_torch.launch import train as train_main
+    from repro_torch.runtime import FailureInjector, Trainer
+
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build"))
+    try:
+        # 1. launch.train, each save timed on the caller's thread
+        ckdir = os.path.join(tmp, "ckpt")
+        saves, save = [], Trainer.save
+
+        def timed_save(self):
+            t0 = time.perf_counter()
+            save(self)
+            saves.append({"step": self.step,
+                          "caller_s": time.perf_counter() - t0})
+
+        Trainer.save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        try:
+            t0 = time.perf_counter()
+            out, log = _captured(train_main, TRAIN_ARGV + [
+                "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckdir])
+            run_s = time.perf_counter() - t0
+        finally:
+            Trainer.save = save
+        trainer_launches = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        kept = sorted(int(d.split("_")[1]) for d in os.listdir(ckdir))
+        for rec in saves:
+            path = os.path.join(ckdir, f"step_{rec['step']}")
+            rec["bytes"] = _dir_bytes(path) if os.path.isdir(path) else None
+        dts = [r["dt"] for r in log]
+        row = {"phase": "train", "arch": "crinn-policy-100m",
+               "param_count": get_config("crinn-policy-100m").param_count(),
+               "steps": len(log), "seconds": run_s,
+               "median_step_ms": 1e3 * float(np.median(dts)),
+               "first_step_ms": 1e3 * dts[0],
+               "loss_first": log[0]["loss"], "loss_last": log[-1]["loss"],
+               "straggler": [r["straggler"] for r in log],
+               "checkpoints": saves, "kept": kept,
+               "peak_device_bytes": peak, "launches": trainer_launches}
+        check([r["step"] for r in log] == list(range(TRAIN_STEPS))
+              and all(np.isfinite(r["loss"]) for r in log)
+              and f"done: {TRAIN_STEPS} steps" in out,
+              f"launch.train: {len(log)} steps, output {out[-500:]}")
+        check([r["step"] for r in saves] == [6, 12, 18, 24]
+              and kept == [12, 18, 24] and saves[-1]["bytes"],
+              f"checkpoints saved {saves}, kept {kept}")
+
+        # 2. resume in a separate process
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+             "--steps", str(RESUME_STEPS), "--ckpt-dir", ckdir, "--resume"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(res.returncode == 0, f"launch.train --resume: exit "
+              f"{res.returncode}\n{res.stderr[-3000:]}")
+        check(f"resumed from step {TRAIN_STEPS}" in res.stdout
+              and f"done: {RESUME_STEPS} steps" in res.stdout,
+              f"launch.train --resume printed {res.stdout[-800:]}")
+        row["resume"] = {"seconds": time.perf_counter() - t0,
+                         "marker": f"resumed from step {TRAIN_STEPS}",
+                         "end_step": TRAIN_STEPS + RESUME_STEPS,
+                         "output": res.stdout.strip().splitlines()[-2:]}
+        shutil.rmtree(ckdir)
+
+        # 3. the failure drill, in this process
+        cfg = get_config("crinn-policy-100m")
+        drill = _policy_trainer(
+            cfg, os.path.join(tmp, "drill"), "cuda",
+            total_steps=DRILL["steps"], ckpt_every=DRILL["ckpt_every"])
+        drill.injector = FailureInjector(fail_at_steps=(DRILL["fail_at"],))
+        dlog = drill.run(PromptPipeline(seq_len=128, global_batch=8).batch)
+        by_step = {}
+        for rec in dlog:
+            by_step.setdefault(rec["step"], []).append(rec["loss"])
+        replayed = DRILL["fail_at"] - DRILL["fail_at"] % DRILL["ckpt_every"]
+        row["drill"] = {"fail_at": DRILL["fail_at"],
+                        "ckpt_every": DRILL["ckpt_every"],
+                        "steps_logged": [r["step"] for r in dlog],
+                        "replayed_step": replayed,
+                        "losses": by_step[replayed], "end_step": drill.step}
+        check(len(by_step[replayed]) == 2 and drill.step == DRILL["steps"]
+              and abs(by_step[replayed][0] - by_step[replayed][1])
+              <= 1e-6 * abs(by_step[replayed][0]),
+              f"failure drill: {row['drill']}")
+        # where a step's time goes: one more step, traced
+        wall, by_kernel = traced(lambda: drill.run(
+            PromptPipeline(seq_len=128, global_batch=8).batch, steps=1))
+        row["step_trace"] = {"wall_s": wall,
+                             "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+                             "kernels": len(by_kernel),
+                             "top_device_us": top_kernels(by_kernel, 6)}
+        del drill
+        torch.cuda.empty_cache()
+
+        # 4. - 6.
+        row["card_vs_cpu"] = train_card_vs_cpu(tmp)
+        torch.cuda.empty_cache()
+        row["remat"] = train_remat(tmp)
+        torch.cuda.empty_cache()
+        row["danube"], launches = train_danube(tmp, counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2178,6 +2566,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_ref20k()
     launches["rl"] = phase_rl()
+    torch.cuda.empty_cache()
+    launches["train"] = phase_train()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     # the stream path's layouts, held against the plain versions there
     for stage in stream_vs_plain.values():

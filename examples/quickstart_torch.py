@@ -80,7 +80,7 @@ def main(argv=None) -> dict:
                               num_layers=2, d_model=128, num_heads=4,
                               num_kv_heads=4, head_dim=32, d_ff=256,
                               dtype="float32")
-    rt = Runtime(attn_chunk=64, logit_chunk=64)
+    rt = Runtime(attn_chunk=64, logit_chunk=64, remat="none")
     gen = torch.Generator(device=device).manual_seed(0)
     policy = Policy(cfg, model.init_params(gen, cfg, device), rt)
     loop = LoopConfig(group_size=4, iterations_per_module=1,

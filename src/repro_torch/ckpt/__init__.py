@@ -1,8 +1,9 @@
 """Checkpoints of the port (mirrors ``repro.ckpt``): the reference's
-on-disk format for index checkpoints and swept frontiers, readable and
-writable by both packages.  The training checkpoint manager comes with
-the training substrate (ROADMAP item 8)."""
+on-disk format for index checkpoints, swept frontiers and training state,
+readable and writable by both packages, and the trainer's rotating
+:class:`CheckpointManager`."""
 from repro_torch.ckpt.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.ckpt.frontier_io import (frontier_json, load_frontier,
                                           save_frontier)
 from repro_torch.ckpt.index_io import (load_index, save_index,
@@ -12,7 +13,8 @@ from repro_torch.ckpt.versioning import (ArtifactFormatError,
                                          check_artifact_age,
                                          check_artifact_format)
 
-__all__ = ["save_checkpoint", "load_checkpoint", "save_index", "load_index",
+__all__ = ["save_checkpoint", "load_checkpoint", "CheckpointManager",
+           "save_index", "load_index",
            "save_index_delta",
            "save_frontier", "load_frontier", "frontier_json",
            "ArtifactFormatError", "check_artifact_format",

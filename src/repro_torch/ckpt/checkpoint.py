@@ -12,13 +12,16 @@ missing, so its files are byte-equal to the reference's there; a
 
 The tree is flat: ``{path: tensor or ndarray}``, frames in sorted key
 order (the order a JAX dict flattens in).  Writes are atomic: into
-``<dir>.tmp``, then ``os.replace``.
+``<dir>.tmp``, then ``os.replace``.  bfloat16 leaves are written as the
+reference writes them (dtype ``"bfloat16"``, 2 bytes an element) without
+numpy knowing that dtype.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,16 +29,44 @@ import torch
 from repro_torch.ckpt import _msgpack
 
 
-def _host(leaf) -> np.ndarray:
+class HostArray(NamedTuple):
+    """A leaf copied to the host: its C-order ``data`` and the dtype name
+    the manifest records.  numpy has no bfloat16 of its own, so a bfloat16
+    tensor's copy holds its uint16 bits under the name ``"bfloat16"``
+    (the name the reference writes for its ``ml_dtypes`` arrays)."""
+    data: np.ndarray
+    dtype: str
+
+
+def host_copy(leaf) -> HostArray:
+    """A host copy of a tensor or array that later writes to ``leaf`` do
+    not reach (a CPU tensor's ``.numpy()`` would alias it)."""
+    if isinstance(leaf, HostArray):
+        return leaf
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().to("cpu", copy=True).contiguous()
+        if t.dtype == torch.bfloat16:
+            return HostArray(t.view(torch.int16).numpy().view(np.uint16),
+                             "bfloat16")
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf, copy=True, order="C")
+    return HostArray(arr, str(arr.dtype))
+
+
+def _from_bytes(data, dtype: str, shape) -> np.ndarray | torch.Tensor:
+    """A leaf read back: an ndarray, or a CPU bfloat16 tensor for
+    ``"bfloat16"`` (whether or not numpy knows the name)."""
+    if dtype == "bfloat16":
+        bits = np.frombuffer(data, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
 
 
 def save_checkpoint(path: str, tree: dict, step: int,
                     extra: dict | None = None) -> None:
-    """Write the flat ``tree`` ({path: tensor or ndarray}) with ``step``
-    and the JSON-able ``extra`` to the directory ``path``."""
+    """Write the flat ``tree`` ({path: tensor, ndarray or HostArray}) with
+    ``step`` and the JSON-able ``extra`` to the directory ``path``."""
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -43,11 +74,10 @@ def save_checkpoint(path: str, tree: dict, step: int,
     manifest = {"step": int(step), "extra": extra or {}, "leaves": {}}
     frames = []
     for key in sorted(tree):
-        arr = _host(tree[key])
-        manifest["leaves"][key] = {"shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)}
+        arr, dtype = host_copy(tree[key])
+        manifest["leaves"][key] = {"shape": list(arr.shape), "dtype": dtype}
         frames.append({"key": key, "bounds": [[0, s] for s in arr.shape],
-                       "data": np.ascontiguousarray(arr).tobytes()})
+                       "data": arr.tobytes()})
     manifest["compression"] = "none"
     with open(os.path.join(tmp, "shard_0.bin"), "wb") as f:
         f.write(_msgpack.packb(frames))
@@ -60,9 +90,10 @@ def save_checkpoint(path: str, tree: dict, step: int,
 
 def load_checkpoint(path: str, like_tree: dict | None = None):
     """``(tree, step, extra)`` of the checkpoint at ``path``.  The tree is
-    ``{path: read-only ndarray}``; with ``like_tree`` (a flat dict of
-    tensors or arrays) every leaf of it must be there with its shape, and
-    comes back as a tensor or array of its dtype (and device)."""
+    ``{path: read-only ndarray}`` (a CPU tensor for a bfloat16 leaf); with
+    ``like_tree`` (a flat dict of tensors or arrays) every leaf of it must
+    be there with its shape, and comes back as a tensor or array of its
+    dtype (and device)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with open(os.path.join(path, "shard_0.bin"), "rb") as f:
@@ -78,8 +109,8 @@ def load_checkpoint(path: str, like_tree: dict | None = None):
     arrays = {}
     for fr in _msgpack.unpackb(payload):
         meta = manifest["leaves"][fr["key"]]
-        arr = np.frombuffer(fr["data"], dtype=np.dtype(meta["dtype"]))
-        arrays[fr["key"]] = arr.reshape(meta["shape"])
+        arrays[fr["key"]] = _from_bytes(fr["data"], meta["dtype"],
+                                        meta["shape"])
     if like_tree is None:
         return arrays, manifest["step"], manifest["extra"]
     out = {}
@@ -89,9 +120,10 @@ def load_checkpoint(path: str, like_tree: dict | None = None):
         arr = arrays[key]
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: "
-                             f"{arr.shape} vs {tuple(leaf.shape)}")
+                             f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
         if isinstance(leaf, torch.Tensor):
-            out[key] = torch.tensor(arr, dtype=leaf.dtype, device=leaf.device)
+            src = arr if isinstance(arr, torch.Tensor) else torch.tensor(arr)
+            out[key] = src.to(dtype=leaf.dtype, device=leaf.device)
         else:
             out[key] = np.array(arr, dtype=leaf.dtype)
     return out, manifest["step"], manifest["extra"]

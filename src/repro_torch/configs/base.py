@@ -4,17 +4,20 @@ the dense family, the only one this package builds.
 :class:`ModelConfig` keeps the reference's dense fields under the same
 names; the MoE, hybrid, SSM and modality fields stay behind with their
 families (ROADMAP.md queue item 8).  Configs are pure data: nothing here
-touches torch or a device.
+touches torch or a device.  The assigned input shapes (:data:`SHAPES`)
+come along as data.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 #: where the families this package cannot build yet are queued
 UNPORTED_FAMILIES_NOTE = ("only the dense family is ported; the moe, hybrid, "
                           "ssm, audio and vlm families wait for ROADMAP.md "
-                          "queue item 8 (training and distributed substrate)")
+                          "queue item 8 (the rest of the training and "
+                          "distributed substrate)")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,10 +61,14 @@ class ModelConfig:
     # -- misc ----------------------------------------------------------------
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     norm_eps: float = 1e-5
+    # gemma2 (1 + weight): data only — every norm here, as in the
+    # reference, stores its scale zero-centred and applies 1 + scale
+    rmsnorm_unit_offset: bool = False
     post_block_norm: bool = False
     act: str = "silu"               # silu | gelu (glu gating everywhere)
     tie_embeddings: bool = False
     embed_scale: bool = False
+    sub_quadratic: bool = False     # eligible for the long_500k shape
     dtype: str = "bfloat16"
 
     # ------------------------------------------------------------------
@@ -118,3 +125,47 @@ class ModelConfig:
                  + self.num_heads * self.head_dim * d)
         # gated FFN and two norms per block
         return n + self.num_layers * (mixer + 3 * d * self.d_ff + 2 * d)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A tiny same-family config for CPU smoke tests (the reference's
+        reduction, field for field, on the dense fields)."""
+        small = dict(
+            num_layers=max(2, len(self.layer_pattern())),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=16,
+            d_ff=128,
+            vocab_size=256,
+            attn_window=min(self.attn_window, 8) if self.attn_window else 0,
+            name=self.name + "-reduced",
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned shape set for the LM family)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k":    InputShape("train_4k", "train", 4096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k":  InputShape("decode_32k", "decode", 32768, 128),
+    "long_500k":   InputShape("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True

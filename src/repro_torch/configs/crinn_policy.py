@@ -19,4 +19,5 @@ CONFIG = ModelConfig(
     act="silu",
     rope_theta=10000.0,
     tie_embeddings=True,
+    sub_quadratic=False,
 )

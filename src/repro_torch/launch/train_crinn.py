@@ -53,7 +53,7 @@ def main(argv=None) -> dict:
                                   num_heads=4, num_kv_heads=4, head_dim=32,
                                   d_ff=256)
     cfg = dataclasses.replace(cfg, dtype="float32")
-    rt = Runtime(attn_chunk=128, logit_chunk=128)
+    rt = Runtime(attn_chunk=128, logit_chunk=128, remat="none")
     gen = torch.Generator(device=device).manual_seed(0)
     policy = Policy(cfg, model.init_params(gen, cfg, device), rt)
     print(f"policy: {cfg.name} ({cfg.param_count()/1e6:.1f}M params) "

@@ -1,8 +1,9 @@
 """GQA attention (mirrors ``repro.models.attention``), three paths:
 
 - **train**: :func:`chunked_attention`, the reference's online-softmax
-  recurrence over (q-chunk, kv-chunk) pairs as PyTorch ops under autograd
-  (its ``masked`` form: every pair is visited and masked).
+  recurrence over (q-chunk, kv-chunk) pairs as PyTorch ops under autograd,
+  in either of its schedules: ``masked`` visits every pair and masks,
+  ``triangle`` visits only the causal (or, with a window, banded) pairs.
 - **prefill**: :func:`repro_torch.kernels.flash.ops.causal_attention`, the
   hand-written CUDA kernel on the card (its plain version on the CPU).  It
   has no backward, so prefill runs without autograd.
@@ -14,6 +15,8 @@ that prefill and decode write in place (the reference returns new arrays;
 the port saves the copy).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -28,11 +31,23 @@ NEG_INF = -2.0 ** 30  # large-but-finite: keeps fp32 softmax NaN-free
 # ---------------------------------------------------------------------------
 # Chunked flash-style attention core (train)
 # ---------------------------------------------------------------------------
+def _kv_chunks(i: int, n: int, w_chunks: int | None, impl: str) -> range:
+    """The kv chunks q chunk ``i`` visits, in the reference's pair order:
+    all ``n`` for ``masked``; for ``triangle`` the causal ones, from the
+    band's lower edge when ``w_chunks`` (the window in chunks) is set."""
+    if impl == "masked":
+        return range(n)
+    lo = 0 if w_chunks is None else max(0, i - w_chunks)
+    return range(lo, i + 1)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_scale: float, window: int = 0, softcap: float = 0.0,
-                      chunk: int = 512) -> torch.Tensor:
+                      chunk: int = 512, impl: str = "masked") -> torch.Tensor:
     """(B, S, Hq, D) x (B, S, Hk, D)^2 -> (B, S, Hq, D), causal (+ window /
-    softcap), with the reference's chunking, pair order and masking."""
+    softcap), with the reference's chunking, pair schedule (``impl``:
+    masked | triangle) and masking.  A skipped pair is one the mask would
+    zero whole, so both schedules give the same output."""
     B, S, Hq, D = q.shape
     Hk = k.shape[2]
     G = Hq // Hk
@@ -40,6 +55,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     while S % chunk != 0:       # largest divisor of S not exceeding `chunk`
         chunk -= 1
     n = S // chunk
+    w_chunks = None if window <= 0 else max(1, math.ceil(window / chunk))
 
     # (B, Hk, G, n, C, D) and (B, Hk, n, C, D) blocks
     qb = q.reshape(B, n, chunk, Hk, G, D).permute(0, 3, 4, 1, 2, 5).float()
@@ -54,7 +70,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((B, Hk, G, chunk, D), device=q.device)
         qc = qb[:, :, :, i]
         qpos = i * chunk + pos[:, None]
-        for j in range(n):
+        for j in _kv_chunks(i, n, w_chunks, impl):
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kb[:, :, j]) * q_scale
             if softcap > 0:
                 s = torch.tanh(s / softcap) * softcap
@@ -122,8 +138,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, window: int,
                 positions: torch.Tensor, mode: str, cache: dict | None = None,
-                cache_len: int | None = None,
-                attn_chunk: int = 512) -> torch.Tensor:
+                cache_len: int | None = None, attn_chunk: int = 512,
+                attn_impl: str = "masked") -> torch.Tensor:
         """x (B, S, d) -> (B, S, d).  ``mode`` is train | prefill | decode;
         prefill and decode write ``cache`` in place (decode also needs
         ``cache_len``, the valid length before this token)."""
@@ -139,7 +155,7 @@ class Attention(nn.Module):
         if mode == "train":
             o = chunked_attention(q, k, v, q_scale=cfg.q_scale, window=window,
                                   softcap=cfg.attn_logit_softcap,
-                                  chunk=attn_chunk)
+                                  chunk=attn_chunk, impl=attn_impl)
         elif mode == "prefill":
             o = flash_ops.causal_attention(q, k, v, q_scale=cfg.q_scale,
                                            window=window,

@@ -2,6 +2,12 @@
 (nested dicts and lists of arrays, pattern blocks stacked under a leading
 ``num_periods`` axis) becomes a :class:`~repro_torch.models.model.DecoderLM`.
 
+Checkpoints name the same leaves flat, by '/'-joined paths
+(``blocks/0/mixer/wq``, stacked); :func:`reference_key` and
+:func:`from_reference_flat` map between those paths and the port's
+per-layer parameter names, for the parameters and for anything keyed
+like them (AdamW's moments and master weights).
+
 Only numpy is used on the reference's side: each leaf is read through
 ``np.asarray``, so JAX arrays and numpy arrays both work and nothing here
 imports JAX.
@@ -16,31 +22,30 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import DecoderLM
 
 
-def _walk(prefix: str, tree, out: dict, take=None) -> None:
+def _walk(path: str, tree, out: dict) -> None:
+    """Flatten a pytree of dicts and lists into ``{'/'-joined path:
+    array}``, as the reference's checkpoints name its leaves."""
     if isinstance(tree, dict):
-        for key, sub in tree.items():
-            _walk(f"{prefix}.{key}", sub, out, take)
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
     else:
-        a = np.asarray(tree)
-        out[prefix] = a if take is None else a[take]
+        out[path] = np.asarray(tree)
+        return
+    for key, sub in items:
+        _walk(f"{path}/{key}" if path else str(key), sub, out)
 
 
 def reference_leaves(tree, cfg: ModelConfig) -> dict[str, np.ndarray]:
     """The leaves of a reference parameter pytree (or of anything shaped
     like it, such as its gradients) under the port's parameter names,
     with the stacked pattern blocks split into one entry per layer."""
-    out: dict[str, np.ndarray] = {}
-    _walk("embed", tree["embed"], out)
-    _walk("final_norm", tree["final_norm"], out)
     if list(tree["prefix"]):
         raise ValueError("the reference pytree has unstacked prefix blocks, "
                          "which no dense config makes")
-    pattern = list(tree["blocks"])
-    period = len(pattern)
-    for t in range(cfg.num_periods()):
-        for pos, block in enumerate(pattern):
-            _walk(f"blocks.{t * period + pos}", block, out, take=t)
-    return out
+    flat: dict[str, np.ndarray] = {}
+    _walk("", {k: tree[k] for k in ("embed", "final_norm", "blocks")}, flat)
+    return from_reference_flat(flat, cfg)
 
 
 def from_reference_params(params, cfg: ModelConfig, device=None) -> DecoderLM:
@@ -62,3 +67,36 @@ def from_reference_params(params, cfg: ModelConfig, device=None) -> DecoderLM:
                                  f"shape {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a, np.float32)).to(p.dtype))
     return model
+
+
+def reference_key(name: str, cfg: ModelConfig) -> tuple[str, int | None]:
+    """The reference's flat checkpoint path of the port's parameter
+    ``name`` (or of a leaf under it, ``blocks.5.mixer.wq.q``), and the
+    index along the stacked ``num_periods`` axis (None outside the
+    blocks)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return "/".join(parts), None
+    period = len(cfg.layer_pattern())
+    layer = int(parts[1])
+    return "/".join(["blocks", str(layer % period), *parts[2:]]), layer // period
+
+
+def from_reference_flat(arrays: dict, cfg: ModelConfig) -> dict:
+    """The reference's flat leaves (``{path: array}``, pattern blocks
+    stacked) under the port's names, one entry per layer (a view of
+    ``array[t]``)."""
+    period = len(cfg.layer_pattern())
+    out = {}
+    for key, a in arrays.items():
+        parts = key.split("/")
+        if parts[0] != "blocks":
+            out[".".join(parts)] = a
+            continue
+        if a.shape[0] != cfg.num_periods():
+            raise ValueError(f"{key}: {a.shape[0]} stacked periods, the "
+                             f"config has {cfg.num_periods()}")
+        pos, rest = int(parts[1]), parts[2:]
+        for t in range(cfg.num_periods()):
+            out[".".join(["blocks", str(t * period + pos), *rest])] = a[t]
+    return out

@@ -1,16 +1,23 @@
 """The decoder LM (mirrors ``repro.models.model``) for the dense family:
-init / train-forward / log-probs / prefill / decode.
+init / train-forward / log-probs / LM loss / prefill / decode.
 
 The reference stacks the pattern blocks under a leading ``num_periods``
 axis for ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in
 order (:mod:`repro_torch.models.convert` unstacks the reference's
-parameters).  Other families raise ``NotImplementedError``
-(ROADMAP.md queue item 8).
+parameters).  On the train path ``Runtime.remat="block"`` recomputes each
+period of the layer pattern in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scan body), and ``scan_groups > 1`` adds the reference's second level:
+groups of periods checkpointed whole.  Other families raise
+``NotImplementedError`` (ROADMAP.md queue item 8).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -40,7 +47,8 @@ class Block(nn.Module):
                 cache_len: int | None = None) -> torch.Tensor:
         mix = self.mixer(self.norm1(x), window=self.window,
                          positions=positions, mode=mode, cache=cache,
-                         cache_len=cache_len, attn_chunk=rt.attn_chunk)
+                         cache_len=cache_len, attn_chunk=rt.attn_chunk,
+                         attn_impl=rt.attn_impl)
         if self.post:
             mix = self.post_norm1(mix)
         x = x + mix
@@ -106,13 +114,45 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for spec in cfg.block_specs()]
 
 
+def _remat(fn, x: torch.Tensor) -> torch.Tensor:
+    return checkpoint(fn, x, use_reentrant=False)
+
+
 def _trunk(model: DecoderLM, x: torch.Tensor, rt: Runtime, *,
            positions: torch.Tensor, mode: str, caches: list | None,
            cache_len: int | None) -> torch.Tensor:
-    for i, block in enumerate(model.blocks):
-        x = block(x, positions=positions, mode=mode, rt=rt,
-                  cache=caches[i] if caches is not None else None,
-                  cache_len=cache_len)
+    def layers(lo: int, hi: int, x: torch.Tensor) -> torch.Tensor:
+        for i in range(lo, hi):
+            x = model.blocks[i](x, positions=positions, mode=mode, rt=rt,
+                                cache=caches[i] if caches is not None else None,
+                                cache_len=cache_len)
+        return x
+
+    if mode != "train" or rt.remat == "none":
+        return model.final_norm(layers(0, len(model.blocks), x))
+
+    period = len(model.cfg.layer_pattern())
+    periods = model.cfg.num_periods()
+
+    def one_period(t: int, x: torch.Tensor) -> torch.Tensor:
+        return layers(t * period, (t + 1) * period, x)
+
+    def remat_periods(lo: int, hi: int, x: torch.Tensor) -> torch.Tensor:
+        for t in range(lo, hi):
+            x = _remat(functools.partial(one_period, t), x)
+        return x
+
+    G = rt.scan_groups
+    if G > 1 and periods % G == 0:
+        # sqrt-memory remat: each group of periods keeps only its input
+        # carry; its recompute remats period by period => peak ~ (G + P/G)
+        # carries instead of P
+        inner = periods // G
+        for g in range(G):
+            x = _remat(functools.partial(remat_periods, g * inner,
+                                         (g + 1) * inner), x)
+    else:
+        x = remat_periods(0, periods, x)
     return model.final_norm(x)
 
 
@@ -147,6 +187,22 @@ def token_logprobs(model: DecoderLM, hidden: torch.Tensor,
                            targets[:, lo:lo + ck, None].long())[..., 0]
         out.append(tgt - logz)
     return torch.cat(out, dim=1)
+
+
+def lm_loss(model: DecoderLM, batch: dict,
+            rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross-entropy over ``batch["labels"]`` (else its
+    ``tokens``), shifted inside, weighted by the optional ``loss_mask``
+    (B, S).  Returns (loss, aux), differentiable."""
+    tokens = batch["tokens"]
+    hidden, aux = forward_train(model, tokens, rt)
+    targets = batch.get("labels", tokens)[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(targets.shape, device=targets.device)
+            if mask is None else mask[:, 1:])
+    lp = token_logprobs(model, hidden[:, :-1], targets, rt)
+    loss = -torch.sum(lp * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss, aux
 
 
 @torch.no_grad()

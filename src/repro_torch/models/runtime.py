@@ -1,12 +1,11 @@
 """Runtime knobs that are not architecture (mirrors
-``repro.models.runtime``): the chunk sizes of the train-path attention
-and of the log-probs.
+``repro.models.runtime``): the train path's attention schedule and
+rematerialisation, and the chunk sizes of the attention and the
+log-probs, with the reference's defaults.
 
-The train path always runs the reference's ``masked`` attention without
-rematerialisation, as the RL loop configures it; the reference's mesh,
-sharding, MoE, SSM, sequence-sharded decode and cost-accounting knobs
-belong to the families and the distributed substrate this package does
-not build yet (ROADMAP.md queue item 8).
+The reference's mesh, sharding, MoE, SSM, sequence-sharded decode and
+cost-accounting knobs belong to the families and the distributed
+substrate this package does not build yet (ROADMAP.md queue item 8).
 """
 from __future__ import annotations
 
@@ -15,5 +14,18 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class Runtime:
+    # attention
+    attn_impl: str = "masked"            # masked (baseline) | triangle (optimized)
     attn_chunk: int = 512
+    # memory policy
+    remat: str = "block"                 # none | block
+    scan_groups: int = 1                 # >1: two-level sqrt-memory remat —
+                                         # the groups of periods are remat'd,
+                                         # saving G + P/G carries instead of P
     logit_chunk: int = 512               # chunked log-probs over sequence
+
+    def __post_init__(self):
+        if self.attn_impl not in ("masked", "triangle"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: masked | triangle")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"remat {self.remat!r}: none | block")

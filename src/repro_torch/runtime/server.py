@@ -306,3 +306,47 @@ class AnnsServer:
             if not drain:
                 break
         return out
+
+
+class GenerateServer:
+    """Static-batch text generation over a decoder LM: one fixed (B, T)
+    prompt batch prefilled together (through the flash kernel on the
+    card) and decoded in lockstep for ``n_steps`` — requests neither join
+    nor leave mid-flight, so a short completion waits for the longest one
+    in its batch.  (The continuous batcher is the ANNS serving tier's
+    :class:`repro_torch.serve.scheduler.ContinuousBatcher`.)  Runs on the
+    device of the model's parameters."""
+
+    def __init__(self, cfg, model, rt, *, batch: int, max_seq: int):
+        from repro_torch.models import model as model_lib
+        self.lm = model_lib
+        self.cfg, self.model, self.rt = cfg, model, rt
+        self.batch, self.max_seq = batch, max_seq
+
+    def generate(self, prompts: np.ndarray, n_steps: int,
+                 temperature: float = 0.0,
+                 generator: torch.Generator | None = None) -> np.ndarray:
+        """prompts: (B, T) int -> (B, n_steps) int32 greedy tokens, or
+        sampled at ``temperature`` > 0 from ``generator`` (on the model's
+        device)."""
+        m, cfg, rt = self.lm, self.cfg, self.rt
+        B, T = prompts.shape
+        if B > self.batch or T + n_steps > self.max_seq:
+            raise ValueError(f"prompts {prompts.shape} + {n_steps} steps "
+                             f"exceed batch {self.batch} / max_seq "
+                             f"{self.max_seq}")
+        dev = self.model.embed.embedding.device
+        caches = m.init_cache(cfg, B, self.max_seq, device=dev)
+        logits, caches, clen = m.prefill(
+            self.model, torch.as_tensor(prompts, device=dev), rt, caches)
+        toks = []
+        for _ in range(n_steps):
+            if temperature <= 0:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            toks.append(nxt)
+            logits, caches, clen = m.decode_step(
+                self.model, nxt[:, None], rt, caches, clen)
+        return torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()

@@ -179,7 +179,7 @@ def loop_pair():
     cfg = dataclasses.replace(get_config("crinn-policy-100m"), **SMALL)
     params = jax_model.init_params(jax.random.PRNGKey(0), jcfg)
     jrt = JaxRuntime(mesh=None, attn_chunk=64, logit_chunk=64, remat="none")
-    rt = Runtime(attn_chunk=64, logit_chunk=64)
+    rt = Runtime(attn_chunk=64, logit_chunk=64, remat="none")
     kw = dict(group_size=4, iterations_per_module=2, temperature=0.0)
     jopt = JaxOptimizer(JaxPolicy(jcfg, params, jrt), None, JaxLoopConfig(**kw))
     opt = CrinnOptimizer(
@@ -250,7 +250,7 @@ def test_construction_key_matches_the_reference(loop_pair):
 # ---------------------------------------------------------------------------
 def test_crinn_loop_runs_on_the_cpu():
     cfg = dataclasses.replace(get_config("crinn-policy-100m"), **SMALL)
-    rt = Runtime(attn_chunk=64, logit_chunk=64)
+    rt = Runtime(attn_chunk=64, logit_chunk=64, remat="none")
     m = model.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     before = {n: p.detach().clone() for n, p in m.named_parameters()}
     ds = make_dataset("sift-128-euclidean", n_base=2000, n_query=64,

@@ -34,6 +34,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.anns.stream", "repro_torch.anns.stream.backends",
             "repro_torch.anns.stream.compactor", "repro_torch.serve",
             "repro_torch.serve.scheduler"} <= set(mods)
+    assert {"repro_torch.data", "repro_torch.data.tokens",
+            "repro_torch.data.prompts", "repro_torch.optim.schedule",
+            "repro_torch.optim.grad_compress", "repro_torch.runtime",
+            "repro_torch.runtime.fault", "repro_torch.runtime.trainer",
+            "repro_torch.ckpt.manager", "repro_torch.launch.train",
+            "repro_torch.configs.glm4_9b", "repro_torch.configs.stablelm_1b6",
+            "repro_torch.configs.h2o_danube_1b8",
+            "repro_torch.configs.gemma2_27b"} <= set(mods)
     # the H100 machine has neither msgpack nor zstandard
     code = (
         "import sys, importlib\n"
@@ -98,6 +106,32 @@ def test_streaming_deltas_and_the_serving_tier_run_with_jax_blocked(tmp_path):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_training_resumes_with_jax_blocked(tmp_path):
+    """launch.train on the CPU, then resumed from its bfloat16 checkpoint
+    in a second run — with jax, the reference, msgpack, zstandard and
+    ml_dtypes (numpy's bfloat16) unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'repro', 'msgpack', 'zstandard', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(SRC)!r})\n"
+        "from repro_torch.launch import train\n"
+        f"argv = ['--reduced', '--device', 'cpu', '--seq', '16',\n"
+        f"        '--global-batch', '2', '--ckpt-dir', {str(tmp_path)!r}]\n"
+        "train.main(argv + ['--steps', '5'])\n"
+        "log = train.main(argv + ['--steps', '1', '--resume'])\n"
+        "assert [r['step'] for r in log] == [5]\n"
+        "assert not any(m in ('jax', 'msgpack', 'zstandard', 'ml_dtypes')\n"
+        "               or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "resumed from step 5" in res.stdout
+    assert res.stdout.rstrip().endswith("ok")
 
 
 def test_no_source_file_imports_jax_or_the_reference():
@@ -167,6 +201,15 @@ def test_train_crinn_main_defaults_to_cuda_and_raises_without_a_card(no_card,
         train_crinn.main(["--fast", "--n-base", "50",
                           "--out", str(tmp_path / "run.json")])
     assert not (tmp_path / "run.json").exists()
+
+
+def test_train_main_defaults_to_cuda_and_raises_without_a_card(no_card,
+                                                                tmp_path):
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
 
 
 def test_policy_model_and_cache_default_to_cuda(no_card):

@@ -45,7 +45,7 @@ def pair():
     jcfg = dataclasses.replace(jax_get_config("crinn-policy-100m"), **SMALL)
     cfg = dataclasses.replace(get_config("crinn-policy-100m"), **SMALL)
     jrt = JaxRuntime(mesh=None, attn_chunk=64, logit_chunk=64, remat="none")
-    rt = Runtime(attn_chunk=64, logit_chunk=64)
+    rt = Runtime(attn_chunk=64, logit_chunk=64, remat="none")
     params = jax_model.init_params(jax.random.PRNGKey(0), jcfg)
     m = from_reference_params(params, cfg, device="cpu")
     return dict(jcfg=jcfg, cfg=cfg, jrt=jrt, rt=rt, params=params, model=m)
@@ -297,7 +297,7 @@ def test_other_dense_configs_match(arch):
     assert [s.attn_window for s in cfg.block_specs()] == [
         s.attn_window for s in jcfg.layer_pattern() * jcfg.num_periods()]
     jrt = JaxRuntime(mesh=None, attn_chunk=4, logit_chunk=4, remat="none")
-    rt = Runtime(attn_chunk=4, logit_chunk=4)
+    rt = Runtime(attn_chunk=4, logit_chunk=4, remat="none")
     params = jax_model.init_params(jax.random.PRNGKey(1), jcfg)
     m = from_reference_params(params, cfg, device="cpu")
     toks = _tokens(5, 2, 12) % 256

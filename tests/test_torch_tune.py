@@ -377,7 +377,8 @@ def test_crinn_optimizer_frontier_seeds_the_reference_s_baselines():
         JaxLoopConfig(), frontier=jf)
     opt = CrinnOptimizer(Policy(cfg, from_reference_params(params, cfg,
                                                            device="cpu"),
-                                Runtime(attn_chunk=64, logit_chunk=64)),
+                                Runtime(attn_chunk=64, logit_chunk=64,
+                                        remat="none")),
                          None, LoopConfig(), frontier=_port_frontier(jf))
     for family in ("graph", "ivf", "sharded", "brute_force"):
         assert opt.baselines.has(family) == jopt.baselines.has(family)
