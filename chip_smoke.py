@@ -97,8 +97,9 @@ non-zero without its last line):
                the 114M-parameter policy (fp32, full width and depth) samples
                GRPO groups of 6 programs, each built and swept on the engine
                at 5,000 x 128 and scored by the banded AUC, then takes a
-               GRPO + AdamW step; 2 iterations of each of the five modules,
-               ``backend`` first.  The kernels' counters are set to 0 just
+               GRPO + AdamW step; 1 iteration of each of the five modules,
+               ``backend`` first (2 before the zoo phase came: the
+               graph_construction module's builds take 120-610 s).  The kernels' counters are set to 0 just
                before and read just after.  The first update is held
                against the same GRPO + AdamW step on the CPU from the same
                weights and batch.
@@ -122,6 +123,23 @@ non-zero without its last line):
                and read just after the GenerateServer call (the training
                path launches no kernel of the port: its attention is the
                reference's chunked PyTorch path, which has a backward).
+
+11. zoo     -- the moe, hybrid, ssm, audio and vlm families at full width
+               (bf16, seed-0 weights; ``param_count`` equal to the JAX
+               package's, held as constants), each through a
+               GenerateServer call of (4, 256) prompts (stub frame / patch
+               embeddings for musicgen and internvl2) + 32 greedy steps
+               whose flash launches must be one per attention layer:
+               jamba-v0.1-52b at 16 of 32 layers (2 launches), traced, and
+               in fp32 at 8 layers prefill + decode against the forward at
+               (2, 64), capacity factor 8; deepseek-moe-16b whole (28
+               launches), traced, then 2 lm_loss + aux Trainer steps at
+               512 x 4, block remat, at 4 of 28 layers; rwkv6-1.6b whole
+               (no port kernel: attention-free), 2 such steps and the
+               fp32 check; musicgen-medium whole (48); internvl2-26b at 8
+               of 48 layers (8, GQA 48 / 8); dbrx-132b at 2 of 40 (2).
+               The counters are set to 0 before and read after each
+               GenerateServer call.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -722,18 +740,28 @@ def kernel_qdist(gen) -> dict:
 
 
 #: the reference's five shapes (tests/test_kernels.py), ragged S, D 80, a
-#: group of 4, window 64, softcap 30, the policy's prefill shapes and
-#: GenerateServer's h2o-danube-1.8b prefill (train phase):
+#: group of 4, window 64, softcap 30, the policy's prefill shapes,
+#: GenerateServer's h2o-danube-1.8b prefill (train phase) and the zoo
+#: phase's prefills (jamba, deepseek, musicgen, internvl2 and dbrx):
 #: (B, S, Hq, Hk, D, window, softcap)
 FLASH_SHAPES = [(2, 256, 4, 2, 64, 0, 0.0), (1, 256, 8, 8, 128, 0, 50.0),
                 (2, 256, 4, 1, 80, 128, 0.0), (1, 512, 2, 2, 64, 0, 0.0),
                 (1, 128, 16, 4, 128, 64, 30.0), (2, 35, 8, 2, 80, 0, 0.0),
                 (1, 200, 4, 1, 64, 64, 30.0), (2, 333, 8, 2, 32, 0, 0.0),
                 (6, 35, 12, 12, 64, 0, 0.0), (6, 128, 12, 12, 64, 0, 0.0),
-                (4, 256, 32, 8, 80, 4096, 0.0)]
+                (4, 256, 32, 8, 80, 4096, 0.0), (4, 256, 32, 8, 128, 0, 0.0),
+                (4, 256, 16, 16, 128, 0, 0.0), (4, 256, 24, 24, 64, 0, 0.0),
+                (4, 256, 48, 8, 128, 0, 0.0)]
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 #: (B, S, Hq, Hk, D) of GenerateServer's h2o-danube-1.8b prefill
 DANUBE_PREFILL = (4, 256, 32, 8, 80)
+#: GenerateServer's bf16 prefills, (B, S, Hq, Hk, D, window): danube (train
+#: phase) and the zoo phase's (internvl2 and dbrx share 48 / 8 of 128)
+PREFILLS = {"danube": DANUBE_PREFILL + (4096,),
+            "jamba": (4, 256, 32, 8, 128, 0),
+            "deepseek": (4, 256, 16, 16, 128, 0),
+            "musicgen": (4, 256, 24, 24, 64, 0),
+            "internvl2_dbrx": (4, 256, 48, 8, 128, 0)}
 #: the folding at its limits (a group of 4, of 64), S of 1 and of 65 (a
 #: second kv tile with one key), checked on the card only
 FLASH_EDGE_SHAPES = [(3, 65, 16, 4, 64, 0, 0.0), (2, 65, 64, 1, 64, 0, 0.0),
@@ -817,33 +845,11 @@ def kernel_flash(gen) -> dict:
                                "library_kernels": top_kernels(lib_kernels, 3),
                                "per_call_event_ms": event_ms}
         del args
-    # GenerateServer's prefill of h2o-danube-1.8b (train phase): bf16,
-    # GQA 32 / 8, D 80, window 4096 (wider than S)
-    B, S, Hq, Hk, D = DANUBE_PREFILL
-    args = qkv(B, S, Hq, Hk, D, torch.bfloat16, n=reps)
-    kw = dict(q_scale=D ** -0.5, window=4096)
-
-    def gqa_sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, scale=D ** -0.5, enable_gqa=True)
-
-    lib_ms, lib_kernels = device_profile(gqa_sdpa, args)
-    nbytes = 2.0 * B * S * D * (2 * Hq + 2 * Hk)
-    products = 4.0 * B * Hq * D * S * (S + 1) / 2
-    other = 4.0 * B * Hq * S * (S + 1) / 2
-    t_ops = max(products / BF16_FLOPS_S, other / FP32_FLOPS_S)
-    danube = {"shape": [B, S, Hq, Hk, D], "dtype": "bfloat16",
-              "ms": device_ms(lambda q, k, v: flash_ops.causal_attention(
-                  q, k, v, **kw), args),
-              "plain_ms": device_ms(lambda q, k, v: flash_ref(q, k, v, **kw),
-                                    args),
-              "bound_ms": 1e3 * max(nbytes / HBM_BYTES_S, t_ops),
-              "bound_by": ("bytes" if nbytes / HBM_BYTES_S >= t_ops
-                           else "operations"),
-              "library_ms": lib_ms,
-              "library_kernels": top_kernels(lib_kernels, 3)}
-    del args
+    # GenerateServer's bf16 prefills: danube (train phase; window 4096,
+    # wider than S) and the zoo's, GQA groups of 1, 4 and 6
+    prefill = {}
+    for name, (B, S, Hq, Hk, D, win) in PREFILLS.items():
+        prefill[name] = flash_prefill_times(gen, B, S, Hq, Hk, D, win, reps)
     main_shape, long_shape = timed
     return {"name": "flash", "route": "cuda",
             "source": "src/repro_torch/csrc/flash.cu",
@@ -855,7 +861,55 @@ def kernel_flash(gen) -> dict:
             "library_call": "F.scaled_dot_product_attention(is_causal=True)",
             "shape": list(main_shape), "dtype": "float32",
             "at_shape_6x128x12x64": timed[long_shape],
-            "at_danube_prefill": danube}
+            "at_danube_prefill": prefill.pop("danube"),
+            "at_prefill": prefill}
+
+
+def flash_prefill_times(gen, B, S, Hq, Hk, D, window, reps) -> dict:
+    """flash at one of GenerateServer's bf16 prefill shapes: its device
+    time beside the plain version's, GQA SDPA's (``enable_gqa``) and the
+    bound (q, k, v read once, out written once; the two products over the
+    causal triangle at the bf16 tensor-core peak, the softmax's ~4
+    operations a score at the fp32 one), and its error to the plain
+    version on the first input."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_ref
+    args = [tuple(torch.randn(B, S, h, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (Hq, Hk, Hk)) for _ in range(reps)]
+    kw = dict(q_scale=D ** -0.5, window=window)
+
+    def kernel(q, k, v):
+        return flash_ops.causal_attention(q, k, v, **kw)
+
+    def plain(q, k, v):
+        return flash_ref(q, k, v, **kw)
+
+    def gqa_sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=D ** -0.5, enable_gqa=True)
+
+    got, want = kernel(*args[0]).float(), plain(*args[0]).float()
+    err = float((got - want).abs().max())
+    check(err <= FLASH_TOL[torch.bfloat16] * (1 + float(want.abs().max())),
+          f"flash at the prefill {(B, S, Hq, Hk, D)}: max error {err}")
+    lib_ms, lib_kernels = device_profile(gqa_sdpa, args)
+    nbytes = 2.0 * B * S * D * (2 * Hq + 2 * Hk)
+    products = 4.0 * B * Hq * D * S * (S + 1) / 2
+    other = 4.0 * B * Hq * S * (S + 1) / 2
+    t_ops = max(products / BF16_FLOPS_S, other / FP32_FLOPS_S)
+    out = {"shape": [B, S, Hq, Hk, D], "window": window, "dtype": "bfloat16",
+           "max_abs_err": err, "ms": device_ms(kernel, args),
+           "plain_ms": device_ms(plain, args),
+           "bound_ms": 1e3 * max(nbytes / HBM_BYTES_S, t_ops),
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_S >= t_ops
+                        else "operations"),
+           "library_ms": lib_ms,
+           "library_kernels": top_kernels(lib_kernels, 3)}
+    del args
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1993,7 +2047,9 @@ def all_cells_vs_brute_force(backend, ds, exact_res) -> dict:
 # ---------------------------------------------------------------------------
 # 9. the CRINN RL loop
 # ---------------------------------------------------------------------------
-RL_ITERS = 2
+#: iterations a module: the depth the script's time limit leaves (each
+#: graph_construction iteration builds 6 alpha-pruned graphs, 60-300 s)
+RL_ITERS = 1
 KL_ROUNDING = 1e-6
 RL_EF_SWEEP = (16, 24, 32, 48, 64, 96, 128)
 
@@ -2553,6 +2609,254 @@ def phase_train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. zoo
+# ---------------------------------------------------------------------------
+#: each zoo row's arch and layers at full width (depth cut where one 80 GB
+#: card cannot hold the bf16 weights, or the AdamW state for training)
+ZOO_ROWS = {"jamba": ("jamba-v0.1-52b", 16),
+            "deepseek": ("deepseek-moe-16b", 28),
+            "rwkv": ("rwkv6-1.6b", 24), "musicgen": ("musicgen-medium", 48),
+            "internvl2": ("internvl2-26b", 8), "dbrx": ("dbrx-132b", 2)}
+#: the JAX package's ModelConfig.param_count() at each (arch, layers) the
+#: phase builds (pure arithmetic, computed on the CPU)
+REF_PARAM_COUNT = {("jamba-v0.1-52b", 16): 25994756096,
+                   ("jamba-v0.1-52b", 8): 13265813504,
+                   ("deepseek-moe-16b", 28): 16375726080,
+                   ("deepseek-moe-16b", 4): 2267037696,
+                   ("rwkv6-1.6b", 24): 1596473344,
+                   ("musicgen-medium", 48): 1818378240,
+                   ("internvl2-26b", 8): 4259414016,
+                   ("dbrx-132b", 2): 7751294976}
+#: GenerateServer's prompts (B, S) and greedy steps; the train rows' batch
+ZOO_PROMPTS, ZOO_NEW, ZOO_TRAIN = (4, 256), 32, (512, 4)
+
+
+def _zoo_cfg(arch: str, layers: int, dtype: str | None = None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    check(cfg.param_count() == REF_PARAM_COUNT[(arch, layers)],
+          f"{arch} at {layers} layers: param_count {cfg.param_count()}, "
+          f"the reference's {REF_PARAM_COUNT[(arch, layers)]}")
+    return cfg
+
+
+def _free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _zoo_model(cfg):
+    """init_params on the card from seed 0; (model, seconds)."""
+    from repro_torch.models import model
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = model.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           "cuda")
+    torch.cuda.synchronize()
+    check(sum(p.numel() for p in lm.parameters()) > 0, f"{cfg.name}: empty")
+    return lm, time.perf_counter() - t0
+
+
+def zoo_generate(cfg, lm, counters, *, trace: bool = False) -> tuple[dict, dict]:
+    """A GenerateServer call of ZOO_PROMPTS (stub embeddings for the audio
+    and vlm frontends, TokenPipeline tokens else) + ZOO_NEW greedy steps,
+    the kernels' counters set to 0 just before and read just after: flash
+    must run once per attention layer.  Then a prefill alone, timed, and
+    (``trace``) the call again under the profiler.  Returns (the row, the
+    launches)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, frontend, model
+    from repro_torch.runtime.server import GenerateServer
+    B, S = ZOO_PROMPTS
+    rt = Runtime(remat="none")
+    if cfg.frontend != "none":
+        prompts = frontend.make_embeds(
+            torch.Generator(device="cuda").manual_seed(1), cfg, B, S)
+    else:
+        prompts = TokenPipeline(cfg.vocab_size, S, B, seed=1).batch(0)
+    srv = GenerateServer(cfg, lm, rt, batch=B, max_seq=S + ZOO_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, ZOO_NEW)
+    gen_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = sum(s.kind == "attention" for s in cfg.block_specs())
+    check(toks.shape == (B, ZOO_NEW)
+          and ((toks >= 0) & (toks < cfg.padded_vocab)).all(),
+          f"{cfg.name}: GenerateServer tokens {toks.shape}")
+    check(launches["flash"] == n_attn and launches["distance"] == 0
+          and launches["topk"] == 0 and launches["qdist"] == 0,
+          f"{cfg.name}: GenerateServer launched {launches}; the prefill "
+          f"should launch flash once per attention layer ({n_attn})")
+    # the prefill alone, for the decode steps' share of the call
+    caches = model.init_cache(cfg, B, S + ZOO_NEW, device="cuda")
+    x = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if x.ndim == 3:
+        model.prefill(lm, None, rt, caches, embeds=x)
+    else:
+        model.prefill(lm, x, rt, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del caches
+    # a decode step reads every weight but the embedding table's unread
+    # rows (the MoE's capacity dispatch runs every expert on its >= 8-row
+    # buffer): its least time at the HBM rate
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if not cfg.tie_embeddings:          # the unembedding is read whole
+        emb = lm.embed.embedding
+        w_bytes -= emb.numel() * emb.element_size()
+    row = {"prompts": [B, S], "inputs": ("embeds" if cfg.frontend != "none"
+                                         else "tokens"),
+           "new_tokens": ZOO_NEW, "seconds": gen_s,
+           "tokens_per_s": B * ZOO_NEW / gen_s, "prefill_s": prefill_s,
+           "decode_ms_per_step": 1e3 * (gen_s - prefill_s) / ZOO_NEW,
+           "decode_bound_ms_per_step": 1e3 * w_bytes / HBM_BYTES_S,
+           "weight_bytes_per_step": w_bytes,
+           "peak_device_bytes": peak, "attention_layers": n_attn,
+           "launches": launches}
+    if trace:
+        wall, by_kernel = traced(lambda: srv.generate(prompts, ZOO_NEW))
+        row["trace"] = {
+            "wall_s": wall,
+            "flash_device_us": sum(us for n, us in by_kernel.items()
+                                   if "flash" in n),
+            "device_busy_share": sum(by_kernel.values()) / 1e6 / wall,
+            "top_device_us": top_kernels(by_kernel, 6)}
+    return row, launches
+
+
+def zoo_decode_vs_forward(cfg32) -> dict:
+    """fp32: prefill of 63 tokens + one decode step against the forward's
+    last logits at (2, 64), capacity factor 8 (no MoE drops in the
+    forward), within 1e-3 (tests/test_models_smoke.py:74-92)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, model
+    lm, _ = _zoo_model(cfg32)
+    rt = Runtime(remat="none", capacity_factor=8.0)
+    toks = torch.as_tensor(TokenPipeline(cfg32.vocab_size, 64, 2,
+                                         seed=2).batch(0), device="cuda")
+    with torch.no_grad():
+        hidden, _ = model.forward_train(lm, toks, rt)
+        want = lm.embed.logits(hidden[:, -1:])[:, 0]
+    caches = model.init_cache(cfg32, 2, 72, device="cuda")
+    _, caches, clen = model.prefill(lm, toks[:, :-1], rt, caches)
+    got, _, _ = model.decode_step(lm, toks[:, -1:], rt, caches, clen)
+    err = float((got - want).abs().max())
+    out = {"dtype": "float32", "shape": [2, 64],
+           "layers": cfg32.num_layers, "param_count": cfg32.param_count(),
+           "max_abs_err": err, "logits_abs_max": float(want.abs().max()),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    check(bool(torch.allclose(got, want, rtol=1e-3, atol=1e-3)),
+          f"{cfg32.name}: prefill + decode differs from the forward: {out}")
+    del lm, caches, hidden
+    _free()
+    return out
+
+
+def zoo_train(cfg, tmp: str) -> dict:
+    """2 Trainer steps of lm_loss + 0.01 aux (GRPOConfig's aux weight) on
+    TokenPipeline at ZOO_TRAIN, block remat, no checkpoint: losses finite,
+    aux > 0 where the config has experts."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    S, B = ZOO_TRAIN
+    rt = Runtime(attn_chunk=512, logit_chunk=512, remat="block")
+    lm, init_s = _zoo_model(cfg)
+    pipe = TokenPipeline(cfg.vocab_size, S, B)
+
+    def loss_fn(m, batch):
+        loss, aux = model.lm_loss(m, batch, rt)
+        return loss + 0.01 * aux, aux.detach()
+
+    tr = Trainer(cfg, rt, lm, tcfg=TrainerConfig(
+        total_steps=2, warmup_steps=1, ckpt_every=10 ** 6,
+        ckpt_dir=os.path.join(tmp, cfg.name)), loss_fn=loss_fn)
+    tr.run(lambda step: {"tokens": pipe.batch(step)}, steps=2)
+    log = tr.metrics_log
+    out = {"layers": cfg.num_layers, "param_count": cfg.param_count(),
+           "seq_batch": [S, B], "init_s": init_s,
+           "losses": [r["loss"] for r in log], "aux": [r["aux"] for r in log],
+           "step_seconds": [r["dt"] for r in log],
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    check(len(log) == 2 and all(np.isfinite(r["loss"]) and np.isfinite(r["aux"])
+                                for r in log), f"{cfg.name}: {out}")
+    if cfg.moe_num_experts:
+        check(all(r["aux"] > 0 for r in log), f"{cfg.name}: aux {out['aux']}")
+    del tr, lm, log
+    _free()
+    return out
+
+
+def phase_zoo() -> dict:
+    """The moe, hybrid, ssm, audio and vlm families at full width (bf16,
+    seed-0 weights), each row through GenerateServer, jamba and rwkv6 also
+    in fp32 against the forward, deepseek and rwkv6 also through the
+    Trainer; returns the kernels' launches over the GenerateServer calls
+    (the counters set to 0 before each, read after, summed)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="zoo_", dir=os.path.join(ROOT, "build"))
+    total = {}
+    try:
+        for name, (arch, layers) in ZOO_ROWS.items():
+            t_row = time.perf_counter()
+            cfg = _zoo_cfg(arch, layers)
+            lm, init_s = _zoo_model(cfg)
+            gen, launches = zoo_generate(
+                cfg, lm, counters,
+                trace=name in ("jamba", "deepseek"))
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            del lm
+            _free()
+            row = {"phase": "zoo." + name, "arch": arch,
+                   "family": cfg.family, "layers": layers,
+                   "full_layers": get_config(arch).num_layers,
+                   "param_count": cfg.param_count(),
+                   "active_param_count": cfg.active_param_count(),
+                   "d_model": cfg.d_model,
+                   "heads": [cfg.num_heads, cfg.num_kv_heads],
+                   "head_dim": cfg.head_dim, "init_s": init_s,
+                   "generate": gen}
+            if arch == "jamba-v0.1-52b":
+                row["decode_vs_forward"] = zoo_decode_vs_forward(
+                    _zoo_cfg(arch, 8, "float32"))
+            elif arch == "deepseek-moe-16b":
+                row["train"] = zoo_train(_zoo_cfg(arch, 4), tmp)
+            elif arch == "rwkv6-1.6b":
+                row["train"] = zoo_train(cfg, tmp)
+                row["decode_vs_forward"] = zoo_decode_vs_forward(
+                    _zoo_cfg(arch, layers, "float32"))
+            if cfg.num_heads == 0:
+                row["note"] = "attention-free: no port kernel runs"
+            row["seconds"] = time.perf_counter() - t_row
+            emit(row)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "zoo", "seconds": time.perf_counter() - t_phase,
+          "rows": list(ZOO_ROWS), "launches": total})
+    return total
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2568,6 +2872,8 @@ def main() -> None:
     launches["rl"] = phase_rl()
     torch.cuda.empty_cache()
     launches["train"] = phase_train()
+    torch.cuda.empty_cache()
+    launches["zoo"] = phase_zoo()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     # the stream path's layouts, held against the plain versions there
     for stage in stream_vs_plain.values():

@@ -2,26 +2,34 @@
 
 ``get_config(name)`` returns the full published config;
 ``get_config(name, reduced=True)`` the CPU-smoke-test reduction of the
-same family.  Registered: the dense half of the reference's zoo and the
-policy LM of the RL loop (``crinn-policy-100m``).  The moe, hybrid, ssm,
-audio and vlm families (musicgen-medium, internvl2-26b, deepseek-moe-16b,
-dbrx-132b, jamba-v0.1-52b, rwkv6-1.6b) wait for ROADMAP.md queue item 8.
+same family.  Registered: the reference's ten assigned architectures
+(dense, moe, hybrid, ssm, audio and vlm) and the policy LM of the RL loop
+(``crinn-policy-100m``).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (crinn_policy, gemma2_27b, glm4_9b,
-                                 h2o_danube_1b8, stablelm_1b6)
+from repro_torch.configs import (crinn_policy, dbrx_132b, deepseek_moe_16b,
+                                 gemma2_27b, glm4_9b, h2o_danube_1b8,
+                                 internvl2_26b, jamba_v01_52b,
+                                 musicgen_medium, rwkv6_1b6, stablelm_1b6)
 from repro_torch.configs.base import (SHAPES, BlockSpec, InputShape,
                                       ModelConfig, shape_applicable)
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (glm4_9b, stablelm_1b6, h2o_danube_1b8, gemma2_27b, crinn_policy)
+    for m in (musicgen_medium, internvl2_26b, deepseek_moe_16b, dbrx_132b,
+              jamba_v01_52b, rwkv6_1b6, glm4_9b, stablelm_1b6,
+              h2o_danube_1b8, gemma2_27b, crinn_policy)
 }
 
-#: the assigned architectures this package builds (the dense ones; the
-#: reference's ASSIGNED_ARCHS lists six more, of the families that wait)
+#: the ten assigned architectures (excludes the paper's own policy config)
 ASSIGNED_ARCHS: tuple[str, ...] = (
+    "musicgen-medium",
+    "internvl2-26b",
+    "deepseek-moe-16b",
+    "dbrx-132b",
+    "jamba-v0.1-52b",
+    "rwkv6-1.6b",
     "glm4-9b",
     "stablelm-1.6b",
     "h2o-danube-1.8b",

@@ -40,11 +40,14 @@ def grpo_loss(model: DecoderLM, batch: dict, rt: Runtime,
       advantages  (B,)   fp32 — group-normalised rewards
       old_logps   (B, T) fp32 — rollout policy per-token logp (0 off-mask)
       ref_logps   (B, T) fp32 — reference policy per-token logp
+      embeds      (B, T, d), optional — the frontend stub's inputs, fed to
+                  the trunk in place of the tokens (audio, vlm)
     Predictions at position t-1 score token t.  Returns (loss, metrics)
     with the loss differentiable in the model's parameters.
     """
     tokens = batch["tokens"]
-    hidden, aux = model_lib.forward_train(model, tokens, rt)
+    hidden, aux = model_lib.forward_train(model, tokens, rt,
+                                          embeds=batch.get("embeds"))
     lp = model_lib.token_logprobs(model, hidden[:, :-1], tokens[:, 1:], rt)
     mask = batch["mask"][:, 1:]
     old = batch["old_logps"][:, 1:]
@@ -77,9 +80,12 @@ def grpo_loss(model: DecoderLM, batch: dict, rt: Runtime,
 
 def grpo_loss_and_grad(model: DecoderLM, batch: dict, rt: Runtime,
                        gcfg: GRPOConfig):
-    """((loss, metrics), grads) with grads a {parameter name: tensor} dict;
+    """((loss, metrics), grads) with grads a {parameter name: tensor} dict
+    (zeros for a parameter the loss does not reach, as ``jax.grad``
+    gives: the token embedding when ``embeds`` replace the tokens);
     nothing is accumulated into ``.grad``."""
     loss, metrics = grpo_loss(model, batch, rt, gcfg)
     named = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(named.values()))
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                materialize_grads=True)
     return (loss.detach(), metrics), dict(zip(named, grads))

@@ -3,11 +3,13 @@ one device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch crinn-policy-100m --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --resume      # same --ckpt-dir
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The model is
-``--arch``'s config (``--reduced``: its smoke-test reduction) in the
-config's dtype, drawn by ``init_params`` from ``torch.Generator`` seed 0;
+``--arch``'s config (any registered arch: dense, moe, hybrid, ssm, audio
+or vlm; ``--reduced``: its smoke-test reduction) in the config's dtype,
+drawn by ``init_params`` from ``torch.Generator`` seed 0;
 the data is the deterministic ``PromptPipeline``, so a resumed run sees
 the batches an unbroken one would.  ``--debug-mesh`` and ``--production``
 need the distributed substrate (``dist/``, a device mesh) and raise

@@ -135,6 +135,8 @@ class Attention(nn.Module):
         self.wk = _param((d, hk, hd), dt, device)
         self.wv = _param((d, hk, hd), dt, device)
         self.wo = _param((h, hd, d), dt, device)
+        self.init_stds = {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
+                          "wo": (h * hd) ** -0.5}
 
     def forward(self, x: torch.Tensor, *, window: int,
                 positions: torch.Tensor, mode: str, cache: dict | None = None,

@@ -1,12 +1,15 @@
 """Carry the reference's parameters across: its ``init_params`` pytree
-(nested dicts and lists of arrays, pattern blocks stacked under a leading
-``num_periods`` axis) becomes a :class:`~repro_torch.models.model.DecoderLM`.
+(nested dicts and lists of arrays: the ``prefix`` blocks one by one, the
+pattern blocks stacked under a leading ``num_periods`` axis) becomes a
+:class:`~repro_torch.models.model.DecoderLM`, whose layers are one list:
+prefix block ``i`` is layer ``i``, pattern position ``pos`` of period
+``t`` is layer ``first_k_dense + t * period + pos``.
 
 Checkpoints name the same leaves flat, by '/'-joined paths
-(``blocks/0/mixer/wq``, stacked); :func:`reference_key` and
-:func:`from_reference_flat` map between those paths and the port's
-per-layer parameter names, for the parameters and for anything keyed
-like them (AdamW's moments and master weights).
+(``prefix/0/ffn/w_in``; ``blocks/0/mixer/wq``, stacked);
+:func:`reference_key` and :func:`from_reference_flat` map between those
+paths and the port's per-layer parameter names, for the parameters and
+for anything keyed like them (AdamW's moments and master weights).
 
 Only numpy is used on the reference's side: each leaf is read through
 ``np.asarray``, so JAX arrays and numpy arrays both work and nothing here
@@ -40,11 +43,9 @@ def reference_leaves(tree, cfg: ModelConfig) -> dict[str, np.ndarray]:
     """The leaves of a reference parameter pytree (or of anything shaped
     like it, such as its gradients) under the port's parameter names,
     with the stacked pattern blocks split into one entry per layer."""
-    if list(tree["prefix"]):
-        raise ValueError("the reference pytree has unstacked prefix blocks, "
-                         "which no dense config makes")
     flat: dict[str, np.ndarray] = {}
-    _walk("", {k: tree[k] for k in ("embed", "final_norm", "blocks")}, flat)
+    _walk("", {k: tree[k] for k in ("embed", "final_norm", "prefix",
+                                    "blocks")}, flat)
     return from_reference_flat(flat, cfg)
 
 
@@ -73,23 +74,29 @@ def reference_key(name: str, cfg: ModelConfig) -> tuple[str, int | None]:
     """The reference's flat checkpoint path of the port's parameter
     ``name`` (or of a leaf under it, ``blocks.5.mixer.wq.q``), and the
     index along the stacked ``num_periods`` axis (None outside the
-    blocks)."""
+    pattern blocks)."""
     parts = name.split(".")
     if parts[0] != "blocks":
         return "/".join(parts), None
+    layer, rest = int(parts[1]), parts[2:]
+    if layer < cfg.first_k_dense:
+        return "/".join(["prefix", str(layer), *rest]), None
     period = len(cfg.layer_pattern())
-    layer = int(parts[1])
-    return "/".join(["blocks", str(layer % period), *parts[2:]]), layer // period
+    t, pos = divmod(layer - cfg.first_k_dense, period)
+    return "/".join(["blocks", str(pos), *rest]), t
 
 
 def from_reference_flat(arrays: dict, cfg: ModelConfig) -> dict:
-    """The reference's flat leaves (``{path: array}``, pattern blocks
-    stacked) under the port's names, one entry per layer (a view of
-    ``array[t]``)."""
+    """The reference's flat leaves (``{path: array}``, prefix blocks one
+    by one, pattern blocks stacked) under the port's names, one entry per
+    layer (a view of ``array[t]``)."""
     period = len(cfg.layer_pattern())
     out = {}
     for key, a in arrays.items():
         parts = key.split("/")
+        if parts[0] == "prefix":
+            out[".".join(["blocks", *parts[1:]])] = a
+            continue
         if parts[0] != "blocks":
             out[".".join(parts)] = a
             continue
@@ -98,5 +105,6 @@ def from_reference_flat(arrays: dict, cfg: ModelConfig) -> dict:
                              f"config has {cfg.num_periods()}")
         pos, rest = int(parts[1]), parts[2:]
         for t in range(cfg.num_periods()):
-            out[".".join(["blocks", str(t * period + pos), *rest])] = a[t]
+            layer = cfg.first_k_dense + t * period + pos
+            out[".".join(["blocks", str(layer), *rest])] = a[t]
     return out

@@ -4,6 +4,9 @@ norms, RoPE, embedding / unembedding, gated FFN.
 Each is an ``nn.Module`` whose parameters carry the reference's names and
 layouts (``scale``, ``embedding`` (V, d), ``w_gate`` (d, f), ...), so
 converted weights load one to one (:mod:`repro_torch.models.convert`).
+A module's ``init_stds`` maps each of its normally-initialised parameters
+to the reference's init scale; the rest start at zero or at a constant
+set by the module.
 """
 from __future__ import annotations
 
@@ -102,6 +105,8 @@ class Embed(nn.Module):
         self.embedding = _param((cfg.padded_vocab, cfg.d_model), dt, device)
         if not cfg.tie_embeddings:
             self.unembed = _param((cfg.d_model, cfg.padded_vocab), dt, device)
+        self.init_stds = {"embedding": cfg.d_model ** -0.5,
+                          "unembed": cfg.d_model ** -0.5}
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embedding[tokens.long()]
@@ -123,6 +128,11 @@ class Embed(nn.Module):
 # ---------------------------------------------------------------------------
 # Gated FFN (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
+def activation(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The config's gate activation: tanh-approximated GELU or SiLU."""
+    return F.gelu(x, approximate="tanh") if act == "gelu" else F.silu(x)
+
+
 class GatedFFN(nn.Module):
     """``act(x w_gate) * (x w_in)`` then ``w_out``."""
 
@@ -134,8 +144,9 @@ class GatedFFN(nn.Module):
         self.w_gate = _param((d, d_ff), dt, device)
         self.w_in = _param((d, d_ff), dt, device)
         self.w_out = _param((d_ff, d), dt, device)
+        self.init_stds = {"w_gate": d ** -0.5, "w_in": d ** -0.5,
+                          "w_out": d_ff ** -0.5}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = x @ self.w_gate
-        h = F.gelu(g, approximate="tanh") if self.act == "gelu" else F.silu(g)
+        h = activation(x @ self.w_gate, self.act)
         return (h * (x @ self.w_in)) @ self.w_out

@@ -1,15 +1,21 @@
-"""The decoder LM (mirrors ``repro.models.model``) for the dense family:
-init / train-forward / log-probs / LM loss / prefill / decode.
+"""The decoder LM (mirrors ``repro.models.model``) over every config of
+the zoo: init / train-forward / log-probs / LM loss / prefill / decode.
 
-The reference stacks the pattern blocks under a leading ``num_periods``
-axis for ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in
-order (:mod:`repro_torch.models.convert` unstacks the reference's
-parameters).  On the train path ``Runtime.remat="block"`` recomputes each
-period of the layer pattern in the backward pass
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-scan body), and ``scan_groups > 1`` adds the reference's second level:
-groups of periods checkpointed whole.  Other families raise
-``NotImplementedError`` (ROADMAP.md queue item 8).
+The stack is ``prefix blocks + layer pattern x num_periods``: deepseek's
+dense first layer, then the pattern of attention / Mamba / RWKV6 mixers
+with dense, MoE or channel-mix FFNs.  The reference stacks the pattern
+blocks under a leading ``num_periods`` axis for ``lax.scan``; here all
+layers are one ``nn.ModuleList`` walked in order, the prefix first
+(:mod:`repro_torch.models.convert` maps the two layouts).  On the train
+path ``Runtime.remat="block"`` recomputes each period of the pattern in
+the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body; the prefix runs outside it), and
+``scan_groups > 1`` adds the reference's second level: groups of periods
+checkpointed whole.  MoE blocks add their load-balancing loss to the
+returned aux.
+
+Inputs are token ids or, for the audio and vlm frontends' stubs,
+``embeds`` (B, S, d) in their place (:mod:`repro_torch.models.frontend`).
 """
 from __future__ import annotations
 
@@ -21,126 +27,186 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import mamba, rwkv
 from repro_torch.models.attention import Attention, make_cache
 from repro_torch.models.layers import Embed, GatedFFN, Norm, pdtype
+from repro_torch.models.moe import MoE
 from repro_torch.models.runtime import Runtime
 
 
 class Block(nn.Module):
     """Pre-norm decoder block: ``x + mixer(norm1(x))``, then
-    ``x + ffn(norm2(x))`` (with gemma2-style post norms when configured)."""
+    ``x + ffn(norm2(x))`` (with gemma2-style post norms when configured).
+    The mixer is ``spec.kind``'s (attention / mamba / rwkv6); the FFN is
+    the MoE (plus deepseek's ``shared_ffn``) where ``spec.moe``, RWKV6's
+    channel mix, else a gated FFN, of ``dense_d_ff`` in the
+    ``first_k_dense`` prefix (layer ``idx``)."""
 
-    def __init__(self, cfg: ModelConfig, spec: BlockSpec, device=None):
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, idx: int,
+                 device=None):
         super().__init__()
-        self.window = spec.attn_window
+        self.spec = spec
         self.post = cfg.post_block_norm
         self.norm1 = Norm(cfg, device)
         self.norm2 = Norm(cfg, device)
         if cfg.post_block_norm:
             self.post_norm1 = Norm(cfg, device)
             self.post_norm2 = Norm(cfg, device)
-        self.mixer = Attention(cfg, device)
-        self.ffn = GatedFFN(cfg, cfg.d_ff, device)
+        if spec.kind == "attention":
+            self.mixer = Attention(cfg, device)
+        elif spec.kind == "mamba":
+            self.mixer = mamba.Mamba(cfg, device)
+        elif spec.kind == "rwkv6":
+            self.mixer = rwkv.TimeMix(cfg, device)
+        else:
+            raise ValueError(f"unknown block kind {spec.kind!r}")
+        if spec.moe:
+            self.ffn = MoE(cfg, device)
+            if cfg.moe_num_shared > 0:
+                self.shared_ffn = GatedFFN(
+                    cfg, cfg.moe_num_shared * cfg.moe_d_ff, device)
+        elif spec.kind == "rwkv6":
+            self.ffn = rwkv.ChannelMix(cfg, device)
+        else:
+            dense = cfg.dense_d_ff and idx < cfg.first_k_dense
+            self.ffn = GatedFFN(cfg, cfg.dense_d_ff if dense else cfg.d_ff,
+                                device)
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor, mode: str,
                 rt: Runtime, cache: dict | None = None,
-                cache_len: int | None = None) -> torch.Tensor:
-        mix = self.mixer(self.norm1(x), window=self.window,
-                         positions=positions, mode=mode, cache=cache,
-                         cache_len=cache_len, attn_chunk=rt.attn_chunk,
-                         attn_impl=rt.attn_impl)
+                cache_len: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x, the MoE aux loss or None).  Prefill and decode write
+        ``cache`` (this layer's) in place."""
+        spec = self.spec
+        h = self.norm1(x)
+        new = None
+        if spec.kind == "attention":
+            mix = self.mixer(h, window=spec.attn_window, positions=positions,
+                             mode=mode, cache=cache, cache_len=cache_len,
+                             attn_chunk=rt.attn_chunk, attn_impl=rt.attn_impl)
+        elif spec.kind == "mamba":
+            mix, new = self.mixer(h, mode=mode, state=cache,
+                                  chunk=rt.mamba_chunk)
+        else:
+            mix, new = self.mixer(h, mode=mode, state=cache)
+        if new is not None:
+            cache.update(new)
         if self.post:
             mix = self.post_norm1(mix)
         x = x + mix
-        out = self.ffn(self.norm2(x))
+
+        h = self.norm2(x)
+        aux = None
+        if spec.moe:
+            out, aux = self.ffn(h, rt.capacity_factor)
+            if hasattr(self, "shared_ffn"):
+                out = out + self.shared_ffn(h)
+        elif spec.kind == "rwkv6":
+            out, new = self.ffn(h, mode=mode,
+                                state=cache if mode == "decode" else None)
+            if new is not None:
+                cache.update(new)
+        else:
+            out = self.ffn(h)
         if self.post:
             out = self.post_norm2(out)
-        return x + out
+        return x + out, aux
 
 
 class DecoderLM(nn.Module):
-    """Parameters named as the reference's pytree leaves: ``embed.*``,
-    ``blocks.<layer>.{norm1,norm2,mixer,ffn}.*``, ``final_norm.scale``.
-    Created with zeroed parameters on ``device`` (``cuda`` unless
-    ``"cpu"`` is asked); :func:`init_params` draws them."""
+    """Parameters named as the reference's pytree leaves, one block per
+    layer: ``embed.*``, ``blocks.<layer>.{norm1,norm2,mixer,ffn,
+    shared_ffn}.*``, ``final_norm.*``.  Created on ``device`` (``cuda``
+    unless ``"cpu"`` is asked) with the normally-initialised parameters
+    zeroed; :func:`init_params` draws them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        cfg.require_dense()
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = Embed(cfg, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, spec, device) for spec in cfg.block_specs())
+            Block(cfg, spec, i, device)
+            for i, spec in enumerate(cfg.block_specs()))
         self.final_norm = Norm(cfg, device)
-
-
-def _init_std(name: str, cfg: ModelConfig) -> float | None:
-    """The reference's init scale of a parameter (None: zeros)."""
-    leaf = name.rsplit(".", 1)[-1]
-    d = cfg.d_model
-    if leaf in ("embedding", "unembed", "wq", "wk", "wv", "w_gate", "w_in"):
-        return d ** -0.5
-    if leaf == "wo":
-        return (cfg.num_heads * cfg.head_dim) ** -0.5
-    if leaf == "w_out":
-        return cfg.d_ff ** -0.5
-    return None                      # norm scales / biases start at zero
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> DecoderLM:
     """A model with the reference's init distributions (normal weights at
-    the reference's scales, zero norm scales), drawn from ``generator``,
-    which must live on ``device``.  The draws differ from
+    each module's ``init_stds``, the rest at their constants), drawn from
+    ``generator``, which must live on ``device``.  The draws differ from
     ``jax.random``'s; tests carry weights across with
     :func:`repro_torch.models.convert.from_reference_params`."""
     model = DecoderLM(cfg, device=device)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            std = _init_std(name, cfg)
-            if std is not None:
-                w = torch.randn(p.shape, generator=generator, device=p.device)
-                p.copy_(w * std)
+        for mod in model.modules():
+            for leaf, std in getattr(mod, "init_stds", {}).items():
+                p = getattr(mod, leaf, None)
+                if p is not None:
+                    w = torch.randn(p.shape, generator=generator,
+                                    device=p.device)
+                    p.copy_(w * std)
     return model
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> list[dict]:
-    """One ``{"k", "v"}`` cache per layer, of the model's dtype."""
+    """One cache per layer, in the model's dtype: ``{"k", "v"}`` for
+    attention, ``{"conv", "ssm"}`` for Mamba, ``{"shift_tm", "shift_cm",
+    "wkv"}`` for RWKV6 (recurrent state in fp32)."""
     device = resolve_device(device)
-    return [make_cache(cfg, spec.attn_window, batch, max_seq, pdtype(cfg),
-                       device)
-            for spec in cfg.block_specs()]
+    dt = pdtype(cfg)
+    out = []
+    for spec in cfg.block_specs():
+        if spec.kind == "attention":
+            out.append(make_cache(cfg, spec.attn_window, batch, max_seq, dt,
+                                  device))
+        elif spec.kind == "mamba":
+            out.append(mamba.make_state(cfg, batch, dt, device))
+        else:
+            out.append(rwkv.make_state(cfg, batch, dt, device))
+    return out
 
 
-def _remat(fn, x: torch.Tensor) -> torch.Tensor:
-    return checkpoint(fn, x, use_reentrant=False)
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def _trunk(model: DecoderLM, x: torch.Tensor, rt: Runtime, *,
            positions: torch.Tensor, mode: str, caches: list | None,
-           cache_len: int | None) -> torch.Tensor:
-    def layers(lo: int, hi: int, x: torch.Tensor) -> torch.Tensor:
+           cache_len: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(final-normed hidden, aux summed over the blocks)."""
+    def layers(lo: int, hi: int, x: torch.Tensor,
+               aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         for i in range(lo, hi):
-            x = model.blocks[i](x, positions=positions, mode=mode, rt=rt,
-                                cache=caches[i] if caches is not None else None,
-                                cache_len=cache_len)
-        return x
+            x, a = model.blocks[i](
+                x, positions=positions, mode=mode, rt=rt,
+                cache=caches[i] if caches is not None else None,
+                cache_len=cache_len)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), device=x.device)
     if mode != "train" or rt.remat == "none":
-        return model.final_norm(layers(0, len(model.blocks), x))
+        x, aux = layers(0, len(model.blocks), x, aux)
+        return model.final_norm(x), aux
 
-    period = len(model.cfg.layer_pattern())
-    periods = model.cfg.num_periods()
+    cfg = model.cfg
+    first = cfg.first_k_dense
+    period = len(cfg.layer_pattern())
+    periods = cfg.num_periods()
+    x, aux = layers(0, first, x, aux)          # the prefix, outside remat
 
-    def one_period(t: int, x: torch.Tensor) -> torch.Tensor:
-        return layers(t * period, (t + 1) * period, x)
+    def one_period(t: int, x, aux):
+        return layers(first + t * period, first + (t + 1) * period, x, aux)
 
-    def remat_periods(lo: int, hi: int, x: torch.Tensor) -> torch.Tensor:
+    def remat_periods(lo: int, hi: int, x, aux):
         for t in range(lo, hi):
-            x = _remat(functools.partial(one_period, t), x)
-        return x
+            x, aux = _remat(functools.partial(one_period, t), x, aux)
+        return x, aux
 
     G = rt.scan_groups
     if G > 1 and periods % G == 0:
@@ -149,25 +215,35 @@ def _trunk(model: DecoderLM, x: torch.Tensor, rt: Runtime, *,
         # carries instead of P
         inner = periods // G
         for g in range(G):
-            x = _remat(functools.partial(remat_periods, g * inner,
-                                         (g + 1) * inner), x)
+            x, aux = _remat(functools.partial(remat_periods, g * inner,
+                                              (g + 1) * inner), x, aux)
     else:
-        x = remat_periods(0, periods, x)
-    return model.final_norm(x)
+        x, aux = remat_periods(0, periods, x, aux)
+    return model.final_norm(x), aux
 
 
 def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
     return (torch.arange(S, device=device) + start)[None].expand(B, S)
 
 
-def forward_train(model: DecoderLM, tokens: torch.Tensor,
-                  rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (hidden (B, S, d), aux loss); differentiable."""
-    x = model.embed(tokens)
+def _embed_inputs(model: DecoderLM, tokens: torch.Tensor | None,
+                  embeds: torch.Tensor | None) -> torch.Tensor:
+    """The trunk's input: ``embeds`` (a frontend stub's output, cast to
+    the model's dtype) in place of the tokens' embeddings when given."""
+    if embeds is not None:
+        return embeds.to(pdtype(model.cfg))
+    return model.embed(tokens)
+
+
+def forward_train(model: DecoderLM, tokens: torch.Tensor | None,
+                  rt: Runtime, *, embeds: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S), or ``embeds`` (B, S, d) in their place -> (hidden
+    (B, S, d), aux loss summed over the MoE blocks); differentiable."""
+    x = _embed_inputs(model, tokens, embeds)
     B, S, _ = x.shape
-    h = _trunk(model, x, rt, positions=_positions(B, S, 0, x.device),
-               mode="train", caches=None, cache_len=None)
-    return h, torch.zeros((), device=x.device)
+    return _trunk(model, x, rt, positions=_positions(B, S, 0, x.device),
+                  mode="train", caches=None, cache_len=None)
 
 
 def token_logprobs(model: DecoderLM, hidden: torch.Tensor,
@@ -193,10 +269,11 @@ def lm_loss(model: DecoderLM, batch: dict,
             rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token cross-entropy over ``batch["labels"]`` (else its
     ``tokens``), shifted inside, weighted by the optional ``loss_mask``
-    (B, S).  Returns (loss, aux), differentiable."""
-    tokens = batch["tokens"]
-    hidden, aux = forward_train(model, tokens, rt)
-    targets = batch.get("labels", tokens)[:, 1:]
+    (B, S); the inputs are ``batch["embeds"]`` where given, else its
+    tokens.  Returns (loss, aux), differentiable."""
+    hidden, aux = forward_train(model, batch.get("tokens"), rt,
+                                embeds=batch.get("embeds"))
+    targets = batch.get("labels", batch.get("tokens"))[:, 1:]
     mask = batch.get("loss_mask")
     mask = (torch.ones(targets.shape, device=targets.device)
             if mask is None else mask[:, 1:])
@@ -206,24 +283,30 @@ def lm_loss(model: DecoderLM, batch: dict,
 
 
 @torch.no_grad()
-def prefill(model: DecoderLM, tokens: torch.Tensor, rt: Runtime,
-            caches: list) -> tuple[torch.Tensor, list, int]:
-    """Run the prompt through the flash kernel, filling ``caches`` from
-    slot 0; returns (last-position logits (B, V) fp32, caches, S)."""
-    x = model.embed(tokens)
+def prefill(model: DecoderLM, tokens: torch.Tensor | None, rt: Runtime,
+            caches: list, *, embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, list, int]:
+    """Run the prompt (tokens (B, S), or ``embeds`` (B, S, d)), its
+    attention layers through the flash kernel, filling ``caches`` (KV
+    from slot 0, Mamba / RWKV6 state); returns (last-position logits
+    (B, V) fp32, caches, S)."""
+    x = _embed_inputs(model, tokens, embeds)
     B, S, _ = x.shape
-    h = _trunk(model, x, rt, positions=_positions(B, S, 0, x.device),
-               mode="prefill", caches=caches, cache_len=0)
+    h, _ = _trunk(model, x, rt, positions=_positions(B, S, 0, x.device),
+                  mode="prefill", caches=caches, cache_len=0)
     return model.embed.logits(h[:, -1:])[:, 0], caches, S
 
 
 @torch.no_grad()
-def decode_step(model: DecoderLM, tokens: torch.Tensor, rt: Runtime,
-                caches: list, cache_len: int) -> tuple[torch.Tensor, list, int]:
-    """One token in (B, 1), its logits (B, V) out; ``cache_len`` is the
-    number of valid cache positions before it."""
-    x = model.embed(tokens)
+def decode_step(model: DecoderLM, tokens: torch.Tensor | None, rt: Runtime,
+                caches: list, cache_len: int, *,
+                embeds: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, list, int]:
+    """One token in (B, 1) (or ``embeds`` (B, 1, d)), its logits (B, V)
+    out; ``cache_len`` is the number of valid cache positions before it."""
+    x = _embed_inputs(model, tokens, embeds)
     B = x.shape[0]
-    h = _trunk(model, x, rt, positions=_positions(B, 1, cache_len, x.device),
-               mode="decode", caches=caches, cache_len=cache_len)
+    h, _ = _trunk(model, x, rt,
+                  positions=_positions(B, 1, cache_len, x.device),
+                  mode="decode", caches=caches, cache_len=cache_len)
     return model.embed.logits(h)[:, 0], caches, cache_len + 1

@@ -1,0 +1,105 @@
+"""Token-choice top-k MoE with capacity-based scatter dispatch (mirrors
+the local path of ``repro.models.moe``).
+
+Each token's top-k experts come from a softmax router (ties to the lowest
+expert id, as ``lax.top_k``); an assignment's position within its expert
+is its rank among that expert's assignments in token order (a cumsum over
+the one-hot assignments), and tokens are scattered into an (E, C, d)
+buffer of capacity C: positions >= C are dropped on the scatter and read
+as 0 on the gather, so capacity overflow drops the assignment.  The
+expert products are batched matmuls over the buffer, and the k weighted
+contributions are added onto zeros in token order, in the output dtype.
+
+Shared experts (deepseek) are one wider gated FFN, built by the block
+(``shared_ffn``).  The reference's expert-parallel ``shard_map`` branch
+waits for the distributed substrate (ROADMAP.md queue item 8).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _param, activation, pdtype
+
+
+def capacity(tokens: int, k: int, e: int, factor: float) -> int:
+    """Per-expert capacity: ``int(tokens * k * factor / e) + 1``, rounded
+    up to a multiple of 8, at least 8."""
+    c = int(tokens * k * factor / e) + 1
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def route(router: torch.Tensor, x: torch.Tensor, k: int):
+    """x (T, d) -> (weights (T, k) fp32, ids (T, k) int64, aux scalar):
+    the top-k router probabilities renormalised to sum 1, and the
+    Switch-style load-balancing loss ``E * sum_e f_e * p_e`` on the top-1
+    ids.  A stable descending sort cut at k breaks ties to the lowest
+    expert id, as ``lax.top_k`` does (``torch.topk`` promises no order)."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :k], ids[:, :k]
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    e = router.shape[1]
+    f = F.one_hot(ids[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(probs.mean(dim=0) * f)
+    return w, ids, aux
+
+
+def positions(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """(T, k) expert ids -> (T * k,) each assignment's rank among its
+    expert's assignments, in flattened (token, slot) order."""
+    oh = F.one_hot(ids.reshape(-1), e)
+    return ((torch.cumsum(oh, dim=0) - 1) * oh).sum(dim=-1)
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) fp32, ``w_gate`` / ``w_in`` (E, d, ff) and
+    ``w_out`` (E, ff, d) in the model's dtype."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = pdtype(cfg)
+        d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts
+        self.act, self.k = cfg.act, cfg.moe_top_k
+        self.router = _param((d, e), torch.float32, device)
+        self.w_gate = _param((e, d, ff), dt, device)
+        self.w_in = _param((e, d, ff), dt, device)
+        self.w_out = _param((e, ff, d), dt, device)
+        self.init_stds = {"router": d ** -0.5, "w_gate": d ** -0.5,
+                          "w_in": d ** -0.5, "w_out": ff ** -0.5}
+
+    def dispatch_compute_combine(self, x: torch.Tensor, w: torch.Tensor,
+                                 ids: torch.Tensor, cap: int) -> torch.Tensor:
+        """x (T, d) routed by (w, ids) (T, k) through capacity ``cap``
+        -> the weighted output (T, d) in the expert products' dtype."""
+        T, d = x.shape
+        k = ids.shape[1]
+        e = self.w_gate.shape[0]
+        flat = ids.reshape(-1)
+        pos = positions(ids, e)
+        keep = pos < cap                                     # drops overflow
+        token = torch.arange(T * k, device=x.device) // k
+        buf = x.new_zeros((e, cap, d))
+        buf = buf.index_put((flat[keep], pos[keep]), x[token[keep]])
+
+        h = activation(torch.bmm(buf, self.w_gate), self.act)
+        y = torch.bmm(h * torch.bmm(buf, self.w_in), self.w_out)  # (E, C, d)
+
+        gathered = y[flat, pos.clamp(max=cap - 1)] * keep[:, None].to(y.dtype)
+        contrib = (gathered * w.reshape(-1, 1).to(y.dtype)).view(T, k, d)
+        out = y.new_zeros((T, d))
+        for j in range(k):       # onto zeros in slot order, as .at[].add
+            out = out + contrib[:, j]
+        return out
+
+    def forward(self, x: torch.Tensor, capacity_factor: float = 1.25
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32)."""
+        B, S, d = x.shape
+        xf = x.reshape(B * S, d)
+        w, ids, aux = route(self.router, xf, self.k)
+        cap = capacity(B * S, self.k, self.router.shape[1], capacity_factor)
+        out = self.dispatch_compute_combine(xf, w, ids, cap)
+        return out.reshape(B, S, d).to(x.dtype), aux

@@ -1,11 +1,12 @@
 """Runtime knobs that are not architecture (mirrors
 ``repro.models.runtime``): the train path's attention schedule and
-rematerialisation, and the chunk sizes of the attention and the
-log-probs, with the reference's defaults.
+rematerialisation, the chunk sizes of the attention, the log-probs and
+the Mamba scan, and the MoE capacity factor, with the reference's
+defaults.
 
-The reference's mesh, sharding, MoE, SSM, sequence-sharded decode and
-cost-accounting knobs belong to the families and the distributed
-substrate this package does not build yet (ROADMAP.md queue item 8).
+The reference's mesh, sharding, sequence-sharded decode and
+cost-accounting knobs belong to the distributed substrate this package
+does not build yet (ROADMAP.md queue item 8).
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ class Runtime:
                                          # the groups of periods are remat'd,
                                          # saving G + P/G carries instead of P
     logit_chunk: int = 512               # chunked log-probs over sequence
+    # moe
+    capacity_factor: float = 1.25
+    # ssm
+    mamba_chunk: int = 512
 
     def __post_init__(self):
         if self.attn_impl not in ("masked", "triangle"):

@@ -310,10 +310,12 @@ class AnnsServer:
 
 class GenerateServer:
     """Static-batch text generation over a decoder LM: one fixed (B, T)
-    prompt batch prefilled together (through the flash kernel on the
-    card) and decoded in lockstep for ``n_steps`` — requests neither join
-    nor leave mid-flight, so a short completion waits for the longest one
-    in its batch.  (The continuous batcher is the ANNS serving tier's
+    prompt batch prefilled together (every attention layer through the
+    flash kernel on the card) and decoded in lockstep for ``n_steps`` —
+    requests neither join nor leave mid-flight, so a short completion
+    waits for the longest one in its batch.  Each layer keeps its own
+    cache: KV for attention, the recurrent state for Mamba and RWKV6.
+    (The continuous batcher is the ANNS serving tier's
     :class:`repro_torch.serve.scheduler.ContinuousBatcher`.)  Runs on the
     device of the model's parameters."""
 
@@ -323,22 +325,26 @@ class GenerateServer:
         self.cfg, self.model, self.rt = cfg, model, rt
         self.batch, self.max_seq = batch, max_seq
 
-    def generate(self, prompts: np.ndarray, n_steps: int,
-                 temperature: float = 0.0,
+    def generate(self, prompts, n_steps: int, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> np.ndarray:
-        """prompts: (B, T) int -> (B, n_steps) int32 greedy tokens, or
+        """prompts: (B, T) int tokens, or (B, T, d) embeddings (the audio
+        and vlm frontends' stubs) -> (B, n_steps) int32 greedy tokens, or
         sampled at ``temperature`` > 0 from ``generator`` (on the model's
-        device)."""
+        device).  Decode feeds the generated tokens back."""
         m, cfg, rt = self.lm, self.cfg, self.rt
-        B, T = prompts.shape
+        B, T = prompts.shape[:2]
         if B > self.batch or T + n_steps > self.max_seq:
-            raise ValueError(f"prompts {prompts.shape} + {n_steps} steps "
-                             f"exceed batch {self.batch} / max_seq "
+            raise ValueError(f"prompts {tuple(prompts.shape)} + {n_steps} "
+                             f"steps exceed batch {self.batch} / max_seq "
                              f"{self.max_seq}")
         dev = self.model.embed.embedding.device
         caches = m.init_cache(cfg, B, self.max_seq, device=dev)
-        logits, caches, clen = m.prefill(
-            self.model, torch.as_tensor(prompts, device=dev), rt, caches)
+        prompts = torch.as_tensor(prompts, device=dev)
+        if prompts.ndim == 3:
+            logits, caches, clen = m.prefill(self.model, None, rt, caches,
+                                             embeds=prompts)
+        else:
+            logits, caches, clen = m.prefill(self.model, prompts, rt, caches)
         toks = []
         for _ in range(n_steps):
             if temperature <= 0:

@@ -104,7 +104,7 @@ class Trainer:
         else:
             loss, metrics = self._loss_fn(self.model, batch)
             grads = dict(zip(self.params, torch.autograd.grad(
-                loss, list(self.params.values()))))
+                loss, list(self.params.values()), materialize_grads=True)))
             loss = loss.detach()
         lr_scale = linear_warmup_cosine(step, self.tcfg.warmup_steps,
                                         self.tcfg.total_steps)

@@ -42,6 +42,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.glm4_9b", "repro_torch.configs.stablelm_1b6",
             "repro_torch.configs.h2o_danube_1b8",
             "repro_torch.configs.gemma2_27b"} <= set(mods)
+    assert {"repro_torch.models.moe", "repro_torch.models.mamba",
+            "repro_torch.models.rwkv", "repro_torch.models.frontend",
+            "repro_torch.configs.musicgen_medium",
+            "repro_torch.configs.internvl2_26b",
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.dbrx_132b",
+            "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.configs.rwkv6_1b6"} <= set(mods)
     # the H100 machine has neither msgpack nor zstandard
     code = (
         "import sys, importlib\n"
@@ -134,6 +142,45 @@ def test_training_resumes_with_jax_blocked(tmp_path):
     assert res.stdout.rstrip().endswith("ok")
 
 
+def test_families_train_and_generate_with_jax_blocked(tmp_path):
+    """launch.train on reduced jamba (Mamba, attention, MoE) and
+    GenerateServer on reduced rwkv6 and, from stub embeddings, musicgen,
+    on the CPU with jax, the reference, msgpack, zstandard and ml_dtypes
+    unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'repro', 'msgpack', 'zstandard', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {str(SRC)!r})\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import train\n"
+        "from repro_torch.models import Runtime, frontend, model\n"
+        "from repro_torch.runtime.server import GenerateServer\n"
+        "log = train.main(['--arch', 'jamba-v0.1-52b', '--reduced',\n"
+        "                  '--device', 'cpu', '--seq', '16', '--steps', '2',\n"
+        "                  '--global-batch', '2', '--ckpt-dir',\n"
+        f"                  {str(tmp_path)!r}])\n"
+        "assert len(log) == 2 and all(r['aux'] > 0 for r in log)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "for arch in ('rwkv6-1.6b', 'musicgen-medium'):\n"
+        "    cfg = get_config(arch, reduced=True)\n"
+        "    m = model.init_params(g, cfg, 'cpu')\n"
+        "    srv = GenerateServer(cfg, m, Runtime(remat='none'), batch=2,\n"
+        "                         max_seq=12)\n"
+        "    p = (frontend.make_embeds(g, cfg, 2, 6) if cfg.frontend != 'none'\n"
+        "         else torch.zeros((2, 6), dtype=torch.int32))\n"
+        "    assert srv.generate(p, 4).shape == (2, 4)\n"
+        "assert not any(m in ('jax', 'msgpack', 'zstandard', 'ml_dtypes')\n"
+        "               or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.rstrip().endswith("ok")
+
+
 def test_no_source_file_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
@@ -215,11 +262,12 @@ def test_train_main_defaults_to_cuda_and_raises_without_a_card(no_card,
 def test_policy_model_and_cache_default_to_cuda(no_card):
     from repro_torch.configs import get_config
     from repro_torch.models import model
-    cfg = get_config("crinn-policy-100m")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        model.DecoderLM(cfg)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        model.init_cache(cfg, 2, 8)
+    for arch in ("crinn-policy-100m", "jamba-v0.1-52b", "rwkv6-1.6b"):
+        cfg = get_config(arch, reduced=arch != "crinn-policy-100m")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.DecoderLM(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_cache(cfg, 2, 8)
 
 
 def test_load_index_defaults_to_cuda_and_raises_without_a_card(no_card,

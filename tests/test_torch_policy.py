@@ -80,9 +80,23 @@ def test_config_and_param_count_match_the_reference():
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_config("crinn-policy-100m"), family="moe")
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        model.DecoderLM(cfg, device="cpu")
+    """Every family of the registry builds (the moe, hybrid, ssm, audio and
+    vlm ones too), each layer with its spec's mixer and FFN; only a block
+    kind no config names raises."""
+    from repro_torch.configs import list_archs
+    for arch in list_archs():
+        cfg = get_config(arch, reduced=True)
+        m = model.DecoderLM(cfg, device="cpu")
+        kinds = {"attention": "Attention", "mamba": "Mamba",
+                 "rwkv6": "TimeMix"}
+        for block, spec in zip(m.blocks, cfg.block_specs()):
+            assert type(block.mixer).__name__ == kinds[spec.kind], arch
+            assert (type(block.ffn).__name__ == "MoE") == spec.moe, arch
+        assert len(m.blocks) == cfg.num_layers
+    bad = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                              default_mixer="lstm")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        model.DecoderLM(bad, device="cpu")
 
 
 def test_init_params_follow_the_reference_scales(pair):

@@ -322,26 +322,28 @@ def test_dense_configs_equal_the_references_field_for_field(arch):
     for reduced in (False, True):
         mine = configs.get_config(arch, reduced=reduced)
         ref = jax_configs.get_config(arch, reduced=reduced)
+        assert set(_fields(mine)) == {f.name for f in dataclasses.fields(ref)}
         assert _fields(mine) == {k: getattr(ref, k) for k in _fields(mine)}
         assert mine.param_count() == ref.param_count()
         assert mine.num_periods() == ref.num_periods()
-        assert [s.attn_window for s in mine.block_specs()] == [
-            s.attn_window for s in ref.block_specs()]
+        assert [dataclasses.astuple(s) for s in mine.block_specs()] == [
+            dataclasses.astuple(s) for s in ref.block_specs()]
         assert configs.shape_applicable(mine, configs.SHAPES["long_500k"]) == \
             jax_configs.shape_applicable(ref, jax_configs.SHAPES["long_500k"])
     assert mine.reduced(d_model=32).d_model == 32
 
 
 def test_registry_lists_the_dense_archs_and_the_shapes():
-    assert set(configs.ASSIGNED_ARCHS) == {
-        a for a in jax_configs.ASSIGNED_ARCHS
-        if jax_configs.get_config(a).family == "dense"}
+    """The registry and ASSIGNED_ARCHS are the reference's (all ten
+    assigned archs, in its order, and the policy), and so are the shapes."""
+    assert configs.ASSIGNED_ARCHS == jax_configs.ASSIGNED_ARCHS
+    assert configs.list_archs() == jax_configs.list_archs()
     assert set(configs.list_archs()) == set(configs.ASSIGNED_ARCHS) | {
         "crinn-policy-100m"}
+    assert {configs.get_config(a).family for a in configs.ASSIGNED_ARCHS} == {
+        "dense", "moe", "hybrid", "ssm", "audio", "vlm"}
     assert configs.SHAPES == {k: configs.InputShape(**dataclasses.asdict(v))
                               for k, v in jax_configs.SHAPES.items()}
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("dbrx-132b")
-    moe = dataclasses.replace(configs.get_config("glm4-9b"), family="moe")
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        moe.require_dense()
+        configs.get_config("dbrx-133b")
+    assert not hasattr(configs.ModelConfig, "require_dense")

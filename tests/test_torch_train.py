@@ -48,6 +48,8 @@ from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig  # noqa: E402
 from repro_torch.runtime.server import GenerateServer  # noqa: E402
 
+#: the dense configs of the zoo (tests/test_torch_zoo.py holds the others)
+DENSE_ARCHS = [a for a in ASSIGNED_ARCHS if get_config(a).family == "dense"]
 TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
             head_dim=16, d_ff=128, dtype="float32")
 
@@ -180,7 +182,7 @@ def test_lm_loss_takes_labels_and_a_loss_mask():
 # ---------------------------------------------------------------------------
 # the dense zoo at reduced size
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_dense_zoo_matches_the_reference(arch):
     jcfg, cfg, params = _pair(arch, seed=1)
     m = from_reference_params(params, cfg, device="cpu")
@@ -201,7 +203,7 @@ def test_dense_zoo_matches_the_reference(arch):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_dense_zoo_decode_matches_forward(arch):
     """prefill + decode == the full forward's last logits (fp32), as the
     reference's test_decode_matches_forward_fp32 holds it."""
