@@ -140,6 +140,24 @@ non-zero without its last line):
                of 48 layers (8, GQA 48 / 8); dbrx-132b at 2 of 40 (2).
                The counters are set to 0 before and read after each
                GenerateServer call.
+12. dist    -- the distributed substrate (``repro_torch.dist``): the mesh
+               path at world 1 over NCCL -- ``launch.train --debug-mesh
+               1x1`` (crinn-policy-100m, bf16, seq 128 x batch 8, 4 steps,
+               a rank process of its own) with losses bit-equal to the
+               one-device run, and deepseek-moe-16b at 4 of 28 layers, two
+               lm_loss + 0.01 aux Trainer steps through the expert-parallel
+               MoE at tp 1 with losses and aux bit-equal to the local
+               branch's; step ms beside the one-device step ms, and the
+               collective bytes counted.  Then two ranks on the one card
+               over Gloo with CUDA tensors: deepseek's MoE layer at full
+               width (fp32, 64 experts split 32 / 32) within 1e-4 of the
+               local layer, aux equal; glm4-9b's attention (32 / 2 heads of
+               128) prefilled through the flash kernel into a cache of
+               8,192 positions split in two, one decode step within 1e-4 of
+               the plain decode; compressed_allreduce over
+               crinn-policy-100m's gradient tree equal to the sum of both
+               ranks' codes times the mean scale.  The counters are set to
+               0 before and read after each rank's prefill.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -153,6 +171,7 @@ tree's, and prints one JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -762,10 +781,13 @@ PREFILLS = {"danube": DANUBE_PREFILL + (4096,),
             "deepseek": (4, 256, 16, 16, 128, 0),
             "musicgen": (4, 256, 24, 24, 64, 0),
             "internvl2_dbrx": (4, 256, 48, 8, 128, 0)}
-#: the folding at its limits (a group of 4, of 64), S of 1 and of 65 (a
-#: second kv tile with one key), checked on the card only
+#: checked on the card only: the folding at its limits (a group of 4, of
+#: 64), S of 1 and of 65 (a second kv tile with one key), and the dist
+#: phase's glm4-9b prefill (S 8,191, a group of 16; the CPU tests'
+#: 3xTF32 emulation of it would take tens of GB)
 FLASH_EDGE_SHAPES = [(3, 65, 16, 4, 64, 0, 0.0), (2, 65, 64, 1, 64, 0, 0.0),
-                     (4, 1, 12, 12, 64, 0, 0.0), (1, 65, 8, 8, 128, 16, 0.0)]
+                     (4, 1, 12, 12, 64, 0, 0.0), (1, 65, 8, 8, 128, 16, 0.0),
+                     (1, 8191, 32, 2, 128, 0, 0.0)]
 
 
 def kernel_flash(gen) -> dict:
@@ -2857,6 +2879,328 @@ def phase_zoo() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# 12. dist
+# ---------------------------------------------------------------------------
+#: launch.train at world 1: the train phase's policy run, cut to 4 steps
+DIST_TRAIN_ARGV = ["--arch", "crinn-policy-100m", "--seq", "128",
+                   "--global-batch", "8", "--steps", "4"]
+#: the two-rank checks: deepseek's MoE layer on (B, S) tokens, glm4-9b's
+#: attention decode after a prompt of DIST_PROMPT tokens into a cache of
+#: DIST_PROMPT + 1 positions, split in two
+DIST_MOE_TOKENS, DIST_PROMPT = (4, 128), 8191
+#: deepseek-4's Trainer steps on each MoE branch (the second moves weights
+#: the first updated, so it also holds the update to bit-equality)
+DIST_MOE_STEPS = 2
+DIST_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def _stdout_to_stderr():
+    """Send file descriptor 1 (this process's and its children's) to
+    standard error, keeping the standard output for the JSON lines."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _world_one(store: str):
+    """A one-rank NCCL group on this card; its 1x1 mesh."""
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    init_distributed("cuda", init_method=f"file://{store}", timeout_s=300)
+    return make_debug_mesh(1, 1)
+
+
+def dist_moe_step(mesh, tmp: str) -> dict:
+    """deepseek-moe-16b at full width, 4 of 28 layers: DIST_MOE_STEPS
+    lm_loss + 0.01 aux Trainer steps on the local MoE branch, then the same
+    from the same weights through the expert-parallel branch on ``mesh``
+    (tp = 1); the last step's ms (the first pays NCCL's communicator set-up
+    on the mesh's groups)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Runtime, model
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = _zoo_cfg("deepseek-moe-16b", 4)
+    S, B = ZOO_TRAIN
+    pipe = TokenPipeline(cfg.vocab_size, S, B)
+    out = {}
+    for branch, m in (("local", None), ("expert_parallel", mesh)):
+        rt = Runtime(mesh=m, attn_chunk=512, logit_chunk=512, remat="block")
+
+        def loss_fn(lm_, batch, rt=rt):
+            loss, aux = model.lm_loss(lm_, batch, rt)
+            return loss + 0.01 * aux, aux.detach()
+
+        lm, _ = _zoo_model(cfg)
+        tr = Trainer(cfg, rt, lm, tcfg=TrainerConfig(
+            total_steps=DIST_MOE_STEPS, warmup_steps=1, ckpt_every=10 ** 6,
+            ckpt_dir=os.path.join(tmp, branch)), loss_fn=loss_fn)
+        log = tr.run(lambda step: {"tokens": pipe.batch(step)},
+                     steps=DIST_MOE_STEPS)
+        out[branch] = {k: [r[k] for r in log]
+                       for k in ("loss", "aux", "dt", "collective_bytes")
+                       if k in log[0]}
+        del tr, lm, log
+        _free()
+    local, ep = out["local"], out["expert_parallel"]
+    check(local["loss"] == ep["loss"] and local["aux"] == ep["aux"],
+          f"deepseek-4 expert-parallel at tp 1 differs from local: {out}")
+    return {"layers": cfg.num_layers, "seq_batch": [S, B],
+            "steps": DIST_MOE_STEPS, "step_ms": [1e3 * t for t in ep["dt"]],
+            "single_step_ms": [1e3 * t for t in local["dt"]],
+            "loss": ep["loss"], "aux": ep["aux"],
+            "collective_bytes": ep["collective_bytes"], "bit_equal": True}
+
+
+def _dist_rank(rank: int, store: str, out_file: str) -> None:
+    """One of two ranks on the one card, over Gloo with CUDA tensors:
+    deepseek's MoE layer split 32 / 32, glm4-9b's attention decode over a
+    cache split in two (its prompt through the flash kernel), and
+    compressed_allreduce over crinn-policy-100m's gradient tree."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm, seq_decode
+    from repro_torch.kernels.flash.ref import flash_ref
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.models import Runtime, model
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.layers import apply_rope, rope_freqs
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim.grad_compress import (compress_with_feedback,
+                                                 compressed_allreduce)
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    init_distributed("cuda", backend="gloo", init_method=f"file://{store}",
+                     timeout_s=300)
+    res = {"rank": rank}
+    try:
+        mesh = make_debug_mesh(1, 2)
+        dev = torch.device("cuda")
+        counters = kernel_counters()
+        g = torch.Generator(device=dev)
+
+        # deepseek's MoE layer, fp32, 64 routed experts: 32 a rank
+        cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                                  dtype="float32")
+        g.manual_seed(0)
+        layer = MoE(cfg, device=dev)
+        with torch.no_grad():
+            for n, p in layer.named_parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                        * layer.init_stds[n])
+        x = torch.randn(*DIST_MOE_TOKENS, cfg.d_model, generator=g, device=dev)
+        with torch.no_grad():
+            want, waux = layer(x)
+            half = cfg.moe_num_experts // 2
+            for n in ("w_gate", "w_in", "w_out"):
+                p = getattr(layer, n)
+                p.data = p.data[rank * half:(rank + 1) * half].clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with comm.count_collectives() as counted:
+                got, aux = layer(x, mesh=mesh,
+                                 dp_axes=Runtime(mesh=mesh).data_axes())
+            torch.cuda.synchronize()
+            res["moe"] = {"experts_per_rank": half,
+                          "tokens": DIST_MOE_TOKENS[0] * DIST_MOE_TOKENS[1],
+                          "max_abs_err": float((got - want).abs().max()),
+                          "aux": float(aux), "aux_local": float(waux),
+                          "ms": 1e3 * (time.perf_counter() - t0),
+                          "collective_bytes": counted["total_bytes"]}
+        del layer, want, got
+        torch.cuda.empty_cache()
+
+        # glm4-9b's attention at full width: prefill (flash) into a split
+        # cache, then one decode step against the plain decode
+        cfg = dataclasses.replace(get_config("glm4-9b"), dtype="float32")
+        g.manual_seed(1)
+        attn = Attention(cfg, device=dev)
+        with torch.no_grad():
+            for n, p in attn.named_parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                        * attn.init_stds[n])
+            size = DIST_PROMPT + 1
+            xs = torch.randn(1, size, cfg.d_model, generator=g, device=dev)
+            pos = torch.arange(size, device=dev)[None]
+            shape = (1, size, cfg.num_kv_heads, cfg.head_dim)
+            whole = {"k": torch.zeros(shape, device=dev),
+                     "v": torch.zeros(shape, device=dev)}
+            part = seq_decode.place_cache(
+                {"k": whole["k"].clone(), "v": whole["v"].clone()}, mesh)
+            zero_counts(counters)
+            prefilled = attn(xs[:, :-1], window=0, positions=pos[:, :-1],
+                             mode="prefill", cache=part)
+            res["launches"] = read_counts(counters)
+            # the rope'd q / K / V the prefill gave flash: K / V fill the
+            # whole cache for the plain decode, and flash's plain version
+            # (a KV head's group at a time, 4.3 GB of scores) projected by
+            # wo is held against the prefill's output
+            cos, sin = rope_freqs(cfg, pos[:, :-1], cfg.head_dim)
+            qkv = [torch.einsum("bsd,dhe->bshe", xs[:, :-1], w)
+                   for w in (attn.wq, attn.wk, attn.wv)]
+            q, k, v = (apply_rope(qkv[0], cos, sin),
+                       apply_rope(qkv[1], cos, sin), qkv[2])
+            whole["k"][:, :-1], whole["v"][:, :-1] = k, v
+            G = cfg.num_heads // cfg.num_kv_heads
+            o = torch.cat([flash_ref(q[:, :, h * G:(h + 1) * G],
+                                     k[:, :, h:h + 1], v[:, :, h:h + 1],
+                                     q_scale=cfg.q_scale,
+                                     softcap=cfg.attn_logit_softcap)
+                           for h in range(cfg.num_kv_heads)], dim=2)
+            want = torch.einsum("bshe,hed->bsd", o, attn.wo)
+            tol = FLASH_TOL[torch.float32]
+            torch.testing.assert_close(prefilled, want, rtol=tol, atol=tol)
+            res["prefill"] = {"shape": [1, DIST_PROMPT, cfg.num_heads,
+                                        cfg.num_kv_heads, cfg.head_dim],
+                              "max_abs_err": float((prefilled - want).abs()
+                                                   .max()),
+                              "tolerance": tol}
+            del q, k, v, qkv, o, want, prefilled
+            rt = Runtime(mesh=mesh, seq_shard_decode=True, remat="none")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with comm.count_collectives() as counted:
+                got = attn(xs[:, -1:], window=0, positions=pos[:, -1:],
+                           mode="decode", cache=part, cache_len=DIST_PROMPT,
+                           rt=rt)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            want = attn(xs[:, -1:], window=0, positions=pos[:, -1:],
+                        mode="decode", cache=whole, cache_len=DIST_PROMPT)
+            res["decode"] = {"cache": size, "positions_per_rank":
+                             part["k"].shape[1], "heads": [cfg.num_heads,
+                                                           cfg.num_kv_heads],
+                             "head_dim": cfg.head_dim,
+                             "max_abs_err": float((got - want).abs().max()),
+                             "ms": ms,
+                             "collective_bytes": counted["total_bytes"]}
+        del attn, part, whole
+        torch.cuda.empty_cache()
+
+        # compressed_allreduce over the policy's gradient tree
+        cfg = get_config("crinn-policy-100m")
+        shapes = {n: p.shape for n, p in
+                  model.DecoderLM(cfg, device="meta").named_parameters()}
+        g.manual_seed(10 + rank)
+        grads = {n: torch.randn(s, generator=g, device=dev) * 1e-3
+                 for n, s in shapes.items()}
+        resid = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with comm.count_collectives() as counted:
+            red, _ = compressed_allreduce(grads, resid, mesh, "model")
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        comp, _ = compress_with_feedback(grads, resid)
+        equal = True
+        for n, c in comp.items():
+            q1, s1 = c.q.to(torch.int32), c.scale.reshape(1).clone()
+            dist.broadcast(q1, src=1)
+            dist.broadcast(s1, src=1)
+            if rank == 0:
+                q0, s0 = c.q.to(torch.int32), c.scale.reshape(1)
+                want = (q0 + q1).float() * ((s0 + s1) / 2)
+                equal &= bool(torch.equal(red[n], want))
+        res["compressed"] = {"leaves": len(shapes),
+                             "values": sum(int(np.prod(s)) for s in
+                                           shapes.values()),
+                             "ms": ms, "equal": equal,
+                             "collective_bytes": counted["total_bytes"]}
+        with open(out_file.format(rank=rank), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist() -> dict:
+    """The mesh path at world 1 over NCCL (launch.train --debug-mesh 1x1
+    against the single-device run, deepseek-4's expert-parallel step at
+    tp 1 against the local one), then the combine arithmetic across two
+    ranks on the one card over Gloo; returns the kernels' launches on the
+    path (the flash prefill's, summed over the two ranks)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch import train as train_main
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dist_", dir=os.path.join(ROOT, "build"))
+    row = {"phase": "dist"}
+    try:
+        # 1. launch.train: one device, then --debug-mesh 1x1 (NCCL, a rank
+        # process of its own)
+        with _stdout_to_stderr():
+            one = train_main.main(DIST_TRAIN_ARGV + [
+                "--ckpt-dir", os.path.join(tmp, "one")])
+            t0 = time.perf_counter()
+            mesh_log = train_main.main(DIST_TRAIN_ARGV + [
+                "--ckpt-dir", os.path.join(tmp, "mesh"), "--debug-mesh", "1x1"])
+            mesh_s = time.perf_counter() - t0
+        row["train_world1"] = {
+            "arch": "crinn-policy-100m", "steps": len(mesh_log),
+            "losses": [r["loss"] for r in mesh_log],
+            "single_losses": [r["loss"] for r in one],
+            "step_ms": [1e3 * r["dt"] for r in mesh_log],
+            "single_step_ms": [1e3 * r["dt"] for r in one],
+            "collective_bytes": [r["collective_bytes"] for r in mesh_log],
+            "launcher_s": mesh_s}
+        check(len(mesh_log) == 4 and [r["loss"] for r in mesh_log]
+              == [r["loss"] for r in one],
+              f"--debug-mesh 1x1 losses differ: {row['train_world1']}")
+        _free()
+
+        # 2. deepseek-4 through the expert-parallel branch at tp 1
+        mesh = _world_one(os.path.join(tmp, "store1"))
+        try:
+            row["moe_world1"] = dist_moe_step(mesh, tmp)
+        finally:
+            dist.destroy_process_group()
+        _free()
+
+        # 3. two ranks on the one card over Gloo
+        out_file = os.path.join(tmp, "rank{rank}.json")
+        t0 = time.perf_counter()
+        with _stdout_to_stderr():
+            mp.start_processes(_dist_rank, args=(
+                os.path.join(tmp, "store2"), out_file), nprocs=2, join=True,
+                start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(out_file.format(rank=r)) as f:
+                ranks.append(json.load(f))
+        two = ranks[0]
+        two["launches"] = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                           for k in ranks[0]["launches"]}
+        two["seconds"] = time.perf_counter() - t0
+        row["two_ranks"] = two
+        check(two["moe"]["max_abs_err"] <= DIST_TOL
+              and two["moe"]["aux"] == two["moe"]["aux_local"],
+              f"two-rank MoE: {two['moe']}")
+        check(two["decode"]["max_abs_err"] <= DIST_TOL,
+              f"two-rank decode: {two['decode']}")
+        check(two["compressed"]["equal"],
+              f"compressed_allreduce: {two['compressed']}")
+        check(two["launches"]["flash"] == 2, f"prefill: {two['launches']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return two["launches"]
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2874,6 +3218,8 @@ def main() -> None:
     launches["train"] = phase_train()
     torch.cuda.empty_cache()
     launches["zoo"] = phase_zoo()
+    torch.cuda.empty_cache()
+    launches["dist"] = phase_dist()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     # the stream path's layouts, held against the plain versions there
     for stage in stream_vs_plain.values():

@@ -5,6 +5,10 @@
 writer thread starts (the reference's ``jax.device_get`` snapshot): the
 next optimizer step updates the parameters and moments in place, so a
 thread handed the live tensors would write a torn state.
+
+With a process ``group`` (a sharded trainer, whose caller gathers the
+whole tree first), only the group's rank 0 writes, and every ``wait``
+ends in a barrier, so no rank reads a checkpoint before it is written.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import os
 import re
 import shutil
 import threading
+
+import torch.distributed as dist
 
 from repro_torch.ckpt.checkpoint import (host_copy, load_checkpoint,
                                          save_checkpoint)
@@ -24,10 +30,13 @@ class CheckpointManager:
     not blocked on serialization (the device-to-host copy happens on the
     caller's thread, to snapshot a consistent state)."""
 
-    def __init__(self, root: str, keep_n: int = 3, async_save: bool = True):
+    def __init__(self, root: str, keep_n: int = 3, async_save: bool = True,
+                 group=None):
         self.root = root
         self.keep_n = keep_n
         self.async_save = async_save
+        self.group = group
+        self.writer = group is None or dist.get_rank(group) == 0
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
         os.makedirs(root, exist_ok=True)
@@ -52,6 +61,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            dist.barrier(group=self.group)
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
@@ -60,9 +71,11 @@ class CheckpointManager:
         """Snapshot the flat ``tree`` ({path: tensor, ndarray or HostArray})
         to host memory now; write it as ``step_<step>`` on the writer thread
         (or here, without ``async_save``), then drop all but the newest
-        ``keep_n``."""
+        ``keep_n``.  A rank other than the writer only waits."""
         host_tree = {k: host_copy(v) for k, v in tree.items()}
         self.wait()
+        if not self.writer:
+            return
 
         def work():
             save_checkpoint(self._path(step), host_tree, step, extra)

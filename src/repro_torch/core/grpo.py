@@ -79,13 +79,15 @@ def grpo_loss(model: DecoderLM, batch: dict, rt: Runtime,
 
 
 def grpo_loss_and_grad(model: DecoderLM, batch: dict, rt: Runtime,
-                       gcfg: GRPOConfig):
+                       gcfg: GRPOConfig, loss_scale: float = 1.0):
     """((loss, metrics), grads) with grads a {parameter name: tensor} dict
     (zeros for a parameter the loss does not reach, as ``jax.grad``
     gives: the token embedding when ``embeds`` replace the tokens);
-    nothing is accumulated into ``.grad``."""
+    nothing is accumulated into ``.grad``.  The gradients are those of
+    ``loss * loss_scale`` (a sharded step's rank backpropagates
+    ``loss / world``: :mod:`repro_torch.dist.fsdp`)."""
     loss, metrics = grpo_loss(model, batch, rt, gcfg)
     named = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(named.values()),
+    grads = torch.autograd.grad(loss * loss_scale, list(named.values()),
                                 materialize_grads=True)
     return (loss.detach(), metrics), dict(zip(named, grads))

@@ -7,7 +7,10 @@
 - **prefill**: :func:`repro_torch.kernels.flash.ops.causal_attention`, the
   hand-written CUDA kernel on the card (its plain version on the CPU).  It
   has no backward, so prefill runs without autograd.
-- **decode**: :func:`decode_attend` over the KV cache, as PyTorch ops.
+- **decode**: :func:`decode_attend` over the KV cache, as PyTorch ops;
+  over a sequence-sharded cache (a ``SeqSlice``, with
+  ``Runtime.seq_shard_decode`` on a mesh), the partial-softmax combine
+  (:func:`repro_torch.dist.seq_decode.seq_sharded_decode`).
 
 Weight layouts are the reference's: ``wq``/``wk``/``wv`` (d, h, hd) and
 ``wo`` (h, hd, d).  Caches are ``{"k", "v"}`` tensors of (B, size, Hk, hd)
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import seq_decode
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models.layers import _param, apply_rope, pdtype, rope_freqs
 
@@ -141,10 +145,13 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, *, window: int,
                 positions: torch.Tensor, mode: str, cache: dict | None = None,
                 cache_len: int | None = None, attn_chunk: int = 512,
-                attn_impl: str = "masked") -> torch.Tensor:
+                attn_impl: str = "masked", rt=None) -> torch.Tensor:
         """x (B, S, d) -> (B, S, d).  ``mode`` is train | prefill | decode;
         prefill and decode write ``cache`` in place (decode also needs
-        ``cache_len``, the valid length before this token)."""
+        ``cache_len``, the valid length before this token).  A
+        :class:`~repro_torch.dist.seq_decode.SeqSlice` cache holds this
+        rank's positions only; ``rt`` (a Runtime) selects the
+        sequence-sharded decode."""
         cfg = self.cfg
         S = x.shape[1]
         q = torch.einsum("bsd,dhe->bshe", x, self.wq)
@@ -163,14 +170,28 @@ class Attention(nn.Module):
                                            window=window,
                                            softcap=cfg.attn_logit_softcap)
             size = cache["k"].shape[1]
-            if size >= S:
+            if isinstance(cache, seq_decode.SeqSlice):
+                seq_decode.write_prefill(cache, k, v)
+            elif size >= S:
                 cache["k"][:, :S] = k
                 cache["v"][:, :S] = v
             else:  # ring: token t lives at slot t % size => roll by S % size
                 cache["k"].copy_(torch.roll(k[:, -size:], S % size, dims=1))
                 cache["v"].copy_(torch.roll(v[:, -size:], S % size, dims=1))
+        elif mode == "decode" and isinstance(cache, seq_decode.SeqSlice):
+            if not (rt is not None and rt.seq_shard_decode):
+                raise ValueError("a sequence-sharded cache needs "
+                                 "Runtime(seq_shard_decode=True)")
+            o = seq_decode.seq_sharded_decode(
+                q, k, v, cache, cache_len, window=window, q_scale=cfg.q_scale,
+                softcap=cfg.attn_logit_softcap, mesh=rt.mesh, axis=rt.tp_axis)
         elif mode == "decode":
             size = cache["k"].shape[1]
+            if (rt is not None and rt.seq_shard_decode
+                    and seq_decode.seq_shardable(size, rt.mesh, rt.tp_axis)):
+                raise ValueError(f"seq_shard_decode: a whole {size}-slot cache "
+                                 f"on a mesh it splits over; place it with "
+                                 f"seq_decode.place_cache")
             slot = cache_len % size if window > 0 else min(cache_len, size - 1)
             cache["k"][:, slot] = k[:, 0]
             cache["v"][:, slot] = v[:, 0]

@@ -84,7 +84,8 @@ class Block(nn.Module):
         if spec.kind == "attention":
             mix = self.mixer(h, window=spec.attn_window, positions=positions,
                              mode=mode, cache=cache, cache_len=cache_len,
-                             attn_chunk=rt.attn_chunk, attn_impl=rt.attn_impl)
+                             attn_chunk=rt.attn_chunk, attn_impl=rt.attn_impl,
+                             rt=rt)
         elif spec.kind == "mamba":
             mix, new = self.mixer(h, mode=mode, state=cache,
                                   chunk=rt.mamba_chunk)
@@ -99,7 +100,8 @@ class Block(nn.Module):
         h = self.norm2(x)
         aux = None
         if spec.moe:
-            out, aux = self.ffn(h, rt.capacity_factor)
+            out, aux = self.ffn(h, rt.capacity_factor, mesh=rt.mesh,
+                                ep_axis=rt.tp_axis, dp_axes=rt.data_axes())
             if hasattr(self, "shared_ffn"):
                 out = out + self.shared_ffn(h)
         elif spec.kind == "rwkv6":

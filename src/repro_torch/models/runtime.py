@@ -1,12 +1,15 @@
 """Runtime knobs that are not architecture (mirrors
-``repro.models.runtime``): the train path's attention schedule and
-rematerialisation, the chunk sizes of the attention, the log-probs and
-the Mamba scan, and the MoE capacity factor, with the reference's
-defaults.
+``repro.models.runtime``): the mesh and its axes, the train path's
+attention schedule and rematerialisation, the chunk sizes of the
+attention, the log-probs and the Mamba scan, the MoE capacity factor and
+the sequence-sharded decode, with the reference's defaults.
 
-The reference's mesh, sharding, sequence-sharded decode and
-cost-accounting knobs belong to the distributed substrate this package
-does not build yet (ROADMAP.md queue item 8).
+``mesh`` is a ``torch.distributed`` ``DeviceMesh``
+(:mod:`repro_torch.launch.mesh`) or None (one device).  With it set, the
+MoE blocks run expert-parallel over ``tp_axis`` and, with
+``seq_shard_decode``, attention decodes over a sequence-sharded cache
+(:mod:`repro_torch.dist.seq_decode`).  The reference's cost-accounting
+knobs (``unroll_layers``, ``attn_core_identity``) serve its dry-run alone.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class Runtime:
+    mesh: object = None                  # torch DeviceMesh | None
+    dp_axes: tuple = ("pod", "data", "replica")
+    tp_axis: str = "model"
     # attention
     attn_impl: str = "masked"            # masked (baseline) | triangle (optimized)
     attn_chunk: int = 512
@@ -28,6 +34,13 @@ class Runtime:
     capacity_factor: float = 1.25
     # ssm
     mamba_chunk: int = 512
+    # decode
+    seq_shard_decode: bool = False       # flash-decode partial-softmax combine
+
+    def data_axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.dp_axes if a in self.mesh.mesh_dim_names)
 
     def __post_init__(self):
         if self.attn_impl not in ("masked", "triangle"):

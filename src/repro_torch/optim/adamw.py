@@ -77,12 +77,15 @@ def global_norm(tensors) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: dict,
-                 cfg: AdamWConfig, lr_scale: float = 1.0) -> dict:
+                 cfg: AdamWConfig, lr_scale: float = 1.0,
+                 grad_norm: torch.Tensor | None = None) -> dict:
     """One step, in place on ``params`` and ``state``; returns
     {"grad_norm", "lr"}.  Gradients are clipped to a global norm of
-    ``grad_clip``; moments are bias-corrected by the step count."""
+    ``grad_clip`` (``grad_norm``: that norm, computed by the caller, when
+    ``grads`` are one rank's parts of a sharded gradient); moments are
+    bias-corrected by the step count."""
     step = state["step"] + 1
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step

@@ -8,11 +8,11 @@ memory).  The arithmetic is the reference's: the scale is
 ``max(amax, 1e-20) / 127`` by division, and rounding is half to even
 (``torch.round``, as ``jnp.round``).
 
-Usage, before the gradient reduction:
+Usage, in place of the gradient reduction:
+    reduced, new_residual = compressed_allreduce(grads, residual, mesh, axes)
+or, by hand:
     cg, new_residual = compress_with_feedback(grads, residual)
     ... all-reduce cg[name].q (int8) and dequantize ...
-The reduction itself (the reference's ``compressed_allreduce``) needs the
-distributed substrate (ROADMAP.md queue item 8).
 """
 from __future__ import annotations
 
@@ -56,3 +56,23 @@ def compress_with_feedback(grads: dict[str, torch.Tensor],
 
 def decompress(comp: dict[str, CompressedTensor]) -> dict[str, torch.Tensor]:
     return {n: _dequant(c) for n, c in comp.items()}
+
+
+def compressed_allreduce(grads: dict[str, torch.Tensor],
+                         residual: dict[str, torch.Tensor], mesh, axes):
+    """Sum int8-compressed gradients over the mesh axes ``axes``; returns
+    ({name: reduced fp32 tensor}, new local residual).
+
+    The int8 codes are what the reduction carries; summing them across N
+    ranks needs an int32 accumulator, so the codes go out as int32 and the
+    result is ``acc * mean(scale)``, the scales averaged over the same
+    axes, as the reference's ``psum`` / ``pmean``.  The residual stays on
+    its rank."""
+    from repro_torch.dist import comm
+    comp, new_res = compress_with_feedback(grads, residual)
+    reduced = {}
+    for name, c in comp.items():
+        acc = comm.all_reduce(c.q.to(torch.int32), mesh, axes)
+        scale = comm.all_reduce(c.scale, mesh, axes, op="mean")
+        reduced[name] = acc.float() * scale
+    return reduced, new_res

@@ -7,6 +7,14 @@ checkpoint / restart (resume is exact thanks to the deterministic
 pipelines), failure recovery (restore the last checkpoint, replay) and
 straggler monitoring.  It runs on the device of the model's parameters.
 
+With ``rt.mesh`` set the step is sharded (:mod:`repro_torch.dist.fsdp`):
+the trainer keeps this rank's slices of the model it is given (and the
+ZeRO parts of the AdamW state), splits each global batch over the DP
+axes, gathers each block's weights as it runs, completes the gradients
+over the ranks holding each slice, and reports the loss and metrics of
+the whole batch.  Checkpoints are gathered whole before rank 0 writes
+them, and a restore cuts them again for whatever mesh it lands on.
+
 Checkpoints are in the reference's layout, so either package's Trainer
 restores the other's: ``params/<path>`` and ``opt/{step,m,v,master}/<path>``
 with the pattern blocks stacked under ``num_periods``
@@ -28,6 +36,7 @@ import torch
 from repro_torch.ckpt.checkpoint import HostArray, host_copy
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core.grpo import GRPOConfig, grpo_loss_and_grad
+from repro_torch.dist.comm import count_collectives
 from repro_torch.models.convert import from_reference_flat, reference_key
 from repro_torch.models.model import DecoderLM
 from repro_torch.models.runtime import Runtime
@@ -83,10 +92,26 @@ class Trainer:
         self.tcfg = tcfg
         self.gcfg = gcfg or GRPOConfig()
         self.opt_cfg = opt_cfg or AdamWConfig()
+        self.shard = None
+        group = None
+        if rt.mesh is not None:
+            if self.opt_cfg.quant_state:
+                raise ValueError("a sharded trainer keeps fp32 moments "
+                                 "(quant_state blocks the whole last dim)")
+            import torch.distributed as dist
+
+            from repro_torch.dist.fsdp import Sharded
+            self.shard = Sharded(model, rt.mesh, tp_axis=rt.tp_axis,
+                                 dp_axes=rt.data_axes())
+            group = dist.group.WORLD
         self.params = dict(model.named_parameters())
-        self.opt_state = adamw_init(self.params, self.opt_cfg)
+        # what AdamW updates: the parameters, or each slice's ZeRO part
+        self._opt_params = (self.params if self.shard is None
+                            else self.shard.zero_views(self.params))
+        self.opt_state = adamw_init(self._opt_params, self.opt_cfg)
         self.step = 0
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep_n=tcfg.keep_n)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep_n=tcfg.keep_n,
+                                      group=group)
         self.monitor = StragglerMonitor()
         self.injector = failure_injector
         self.metrics_log: list[dict] = []
@@ -97,21 +122,44 @@ class Trainer:
         return next(iter(self.params.values())).device
 
     # ------------------------------------------------------------------
-    def _train_step(self, batch: dict, step: int):
+    def _loss_and_grads(self, batch: dict, scale: float):
         if self._loss_fn is None:
-            (loss, metrics), grads = grpo_loss_and_grad(
-                self.model, batch, self.rt, self.gcfg)
-        else:
-            loss, metrics = self._loss_fn(self.model, batch)
-            grads = dict(zip(self.params, torch.autograd.grad(
-                loss, list(self.params.values()), materialize_grads=True)))
-            loss = loss.detach()
+            return grpo_loss_and_grad(self.model, batch, self.rt, self.gcfg,
+                                      loss_scale=scale)
+        loss, metrics = self._loss_fn(self.model, batch)
+        grads = dict(zip(self.params, torch.autograd.grad(
+            loss * scale, list(self.params.values()),
+            materialize_grads=True)))
+        return (loss.detach(), metrics), grads
+
+    def _train_step(self, batch: dict, step: int):
         lr_scale = linear_warmup_cosine(step, self.tcfg.warmup_steps,
                                         self.tcfg.total_steps)
-        om = adamw_update(self.params, grads, self.opt_state, self.opt_cfg,
-                          lr_scale=lr_scale)
+        sh = self.shard
+        if sh is None:
+            (loss, metrics), grads = self._loss_and_grads(batch, 1.0)
+            gnorm = None
+        else:
+            with count_collectives() as comm_bytes, sh.gathered():
+                (loss, metrics), grads = self._loss_and_grads(
+                    sh.split_batch(batch), 1.0 / sh.world)
+                grads = sh.reduce_grads(grads)
+                gnorm = sh.grad_norm(grads)
+        om = adamw_update(self._opt_params, grads, self.opt_state,
+                          self.opt_cfg, lr_scale=lr_scale, grad_norm=gnorm)
         if not isinstance(metrics, dict):
             metrics = {"aux": metrics}
+        if sh is not None:
+            with count_collectives() as after:
+                sh.refill(self.params, self._opt_params)
+                loss = sh.dp_reduce(loss)
+                metrics = {k: sh.dp_reduce(
+                    torch.as_tensor(v, device=loss.device),
+                    "max" if k == "ratio_max" else "mean")
+                    for k, v in metrics.items()}
+            # this rank's collective traffic in the step (comm.py's count)
+            metrics["collective_bytes"] = (comm_bytes["total_bytes"]
+                                           + after["total_bytes"])
         return loss, {**metrics, **om}
 
     # ------------------------------------------------------------------
@@ -125,11 +173,17 @@ class Trainer:
 
     def _tree_state(self) -> dict:
         """The state in the reference's checkpoint layout, copied to the
-        host (per layer, then stacked there)."""
+        host (per layer, then stacked there); a sharded trainer's leaves
+        are gathered whole first (every rank takes part; the tree is
+        empty but on the checkpoint's writer)."""
         tree = {"opt/step": np.asarray(self.opt_state["step"], np.int32)}
         for prefix, named in self._groups().items():
             stacks: dict[str, list] = {}
             for name, leaf in _leaves(named).items():
+                if self.shard is not None:
+                    leaf = self.shard.full(leaf, name, prefix != "params")
+                    if not self.ckpt.writer:
+                        continue
                 key, t = reference_key(name, self.cfg)
                 stacks.setdefault(key, []).append((t, host_copy(leaf)))
             for key, parts in stacks.items():
@@ -139,7 +193,7 @@ class Trainer:
                     parts.sort(key=lambda p: p[0])
                     tree[f"{prefix}/{key}"] = HostArray(
                         np.stack([h.data for _, h in parts]), parts[0][1].dtype)
-        return tree
+        return tree if self.ckpt.writer else {}
 
     def save(self) -> None:
         self.ckpt.save(self._tree_state(), self.step)
@@ -159,12 +213,15 @@ class Trainer:
                     f"{sorted(set(want) - set(got))}")
             for name, dst in want.items():
                 src = got[name]
-                if tuple(src.shape) != tuple(dst.shape):
+                whole = (tuple(dst.shape) if self.shard is None
+                         else self.shard.shapes[name])
+                if tuple(src.shape) != whole:
                     raise ValueError(f"{prefix}/{name}: checkpoint shape "
-                                     f"{tuple(src.shape)}, trainer "
-                                     f"{tuple(dst.shape)}")
+                                     f"{tuple(src.shape)}, trainer {whole}")
                 if not isinstance(src, torch.Tensor):
                     src = torch.from_numpy(np.array(src))
+                if self.shard is not None:
+                    src = self.shard.cut(src, name, prefix != "params")
                 dst.copy_(src)
         self.opt_state["step"] = int(np.asarray(arrays["opt/step"]))
 
@@ -203,7 +260,8 @@ class Trainer:
                        "straggler": verdict,
                        **{k: float(v) for k, v in metrics.items()}}
                 self.metrics_log.append(rec)
-                if verbose and self.step % self.tcfg.log_every == 0:
+                if (verbose and self.ckpt.writer
+                        and self.step % self.tcfg.log_every == 0):
                     print(f"step {self.step}: loss={rec['loss']:.4f} "
                           f"dt={dt*1e3:.0f}ms {verdict}")
                 self.step += 1

@@ -469,3 +469,72 @@ def test_stream_fenced_swap_on_the_card(dev):
     for ids in results:
         assert set(ids.ravel().tolist()) <= live
         assert recall_at_k(ids, gt, 10) >= 0.99
+
+
+def test_mesh_path_at_world_one_over_nccl(dev, tmp_path, monkeypatch):
+    """A one-rank NCCL group and a 1x1 mesh: the expert-parallel MoE equals
+    the local branch bit for bit (a one-rank all-reduce is the identity),
+    a cache placed on it stays whole and decodes as the plain decode, and
+    compressed_allreduce returns the dequantized codes."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import comm
+    from repro_torch.dist.seq_decode import place_cache
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.models import Runtime
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim.grad_compress import (compress_with_feedback,
+                                                 compressed_allreduce,
+                                                 decompress)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    init_distributed("cuda", init_method=f"file://{tmp_path}/store",
+                     timeout_s=60)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        cfg = dataclasses.replace(get_config("deepseek-moe-16b", reduced=True),
+                                  dtype="float32")
+        g = torch.Generator(device=dev).manual_seed(0)
+        layer = MoE(cfg, device=dev)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
+        x = torch.randn(2, 16, cfg.d_model, generator=g, device=dev)
+        want, waux = layer(x, 8.0)
+        with comm.count_collectives() as counted:
+            got, aux = layer(x, 8.0, mesh=mesh, dp_axes=("data",))
+        assert torch.equal(got, want) and torch.equal(aux, waux)
+        assert counted["all-reduce"]["count"] == 1
+
+        # a 64-slot cache does not split over one model rank: place_cache
+        # leaves it whole and the plain decode runs
+        attn = Attention(cfg, device=dev)
+        with torch.no_grad():
+            for p in attn.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
+            xs = torch.randn(2, 1, cfg.d_model, generator=g, device=dev)
+            shape = (2, 64, cfg.num_kv_heads, cfg.head_dim)
+            cache = {n: torch.randn(shape, generator=g, device=dev)
+                     for n in "kv"}
+            plain = {n: t.clone() for n, t in cache.items()}
+            placed = place_cache(cache, mesh)
+            assert placed is cache
+            kw = dict(window=0, positions=torch.full((2, 1), 40, device=dev),
+                      mode="decode", cache_len=40)
+            o = attn(xs, cache=placed, rt=Runtime(mesh=mesh,
+                                                  seq_shard_decode=True), **kw)
+            assert torch.equal(o, attn(xs, cache=plain, **kw))
+            assert all(torch.equal(cache[n], plain[n]) for n in "kv")
+
+        grads = {"a": torch.randn(300, generator=g, device=dev)}
+        res = {"a": torch.zeros(300, device=dev)}
+        red, _ = compressed_allreduce(grads, res, mesh, "data")
+        comp, _ = compress_with_feedback(grads, res)
+        assert torch.equal(red["a"], decompress(comp)["a"])
+    finally:
+        dist.destroy_process_group()
