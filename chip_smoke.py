@@ -158,6 +158,26 @@ non-zero without its last line):
                crinn-policy-100m's gradient tree equal to the sum of both
                ranks' codes times the mean scale.  The counters are set to
                0 before and read after each rank's prefill.
+13. shard_mesh -- run after async: main's 1M sharded index (2 shards)
+               saved under build/, a stream_sharded copy of it and a 20k
+               index of the same variant too; two ranks on the one card
+               over Gloo with CUDA tensors each load_index onto the card,
+               place_on_mesh (one shard a rank) and serve 2,048 queries in
+               batches of 64 at ef 64 and the all-cells probe (the stream
+               copy after the same 1,000 inserts and 1,000 deletes on both
+               ranks); rank 0's ids and dists bit-equal to the
+               single-device backends', each rank's device bytes within
+               10% of device_memory_bytes(), the merge bytes a batch the
+               closed form at 1M and 20k alike; placed QPS recorded beside
+               the single-device QPS.  Each rank sets the counters to 0
+               before and reads them after each serving round; the
+               ranks' launches are the path's.
+14. dryrun  -- ``python -m repro_torch.launch.dryrun`` in a subprocess
+               (CPU and meta tensors, a fake process group of 256 / 512
+               ranks) for glm4-9b x train_4k at both meshes and
+               deepseek-moe-16b x decode_32k at 16x16: per-rank argument
+               bytes equal to the specs' local_shape sum, collective
+               bytes equal to gather-on-use's closed form.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line the checks
 read.  Imports nothing of JAX or of the ``repro`` package.
@@ -3201,6 +3221,342 @@ def phase_dist() -> dict:
     return two["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 13. shard_mesh: the 1M sharded index placed across two ranks
+# ---------------------------------------------------------------------------
+#: the placed search's round: queries served in batches at ef 64 and the
+#: all-cells probe; the stream history both ranks apply; the small index
+#: whose merge bytes must be the 1M index's
+SHARD_MESH = {"queries": 2048, "batch": 64, "inserts": 1000, "deletes": 1000,
+              "tail_cap": 1024, "n_small": 20_000}
+#: a rank's device bytes after placement, relative to device_memory_bytes()
+SHARD_MESH_HELD_TOL = 0.10
+
+
+def _mesh_params(backend) -> dict:
+    from repro_torch.anns import SearchParams
+    return {"ef64": SearchParams(k=10, ef=64),
+            "all_cells": SearchParams(k=10,
+                                      ef=backend.search_ef_ladder()[-1])}
+
+
+def _mesh_width(backend, params) -> int:
+    """A shard's shortlist width for ``params`` (the search's arithmetic)."""
+    from repro_torch.anns.backends.ivf import (_probe_floor_nprobe,
+                                               shortlist_width)
+    idx = backend.index
+    p = params.resolved(backend.variant)
+    k = min(p.k, idx.n)
+    nprobe = _probe_floor_nprobe(idx, backend.variant, p, k)
+    return min(shortlist_width(p, k, idx.n, nprobe, idx.cell_pad),
+               nprobe * idx.cell_pad)
+
+
+def _mesh_merge_bytes(world: int, B: int, m_shard: int, cap: int) -> int:
+    """A placed batch's collective bytes: the (S, B, m) int32 positions,
+    fp32 scan and rerank dists and 1-byte validity, the (S, B, cap) fp32
+    tail dists of a streaming index, and the int64 scanned count."""
+    return world * B * (13 * m_shard + 4 * cap) + 8
+
+
+def _serve_batches(backend, q, params, batch: int):
+    """ids, dists of ``q`` served in batches of ``batch``; wall seconds."""
+    ids, dists = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(q), batch):
+        r = backend.search(q[lo:lo + batch], params)
+        ids.append(r.ids)
+        dists.append(r.dists)
+    torch.cuda.synchronize()
+    return torch.cat(ids), torch.cat(dists), time.perf_counter() - t0
+
+
+def _shard_mesh_rank(rank: int, store: str, tmp: str) -> None:
+    """One of two ranks on the one card over Gloo with CUDA tensors: load
+    each saved index onto the card, place it (this rank's shard alone),
+    apply the stream history to the streaming one, serve the queries;
+    rank 0 keeps its ids and dists."""
+    import torch.distributed as dist
+
+    from repro_torch import ckpt
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import init_distributed, make_shard_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    init_distributed("cuda", backend="gloo", init_method=f"file://{store}",
+                     timeout_s=300)
+    try:
+        mesh = make_shard_mesh(2)
+        data = np.load(os.path.join(tmp, "inputs.npz"))
+        q = torch.from_numpy(data["queries"]).cuda()
+        counters = kernel_counters()
+        res, arrays = {"rank": rank}, {}
+        launches = {k: 0 for k in read_counts(counters)}
+        for name in ("sharded", "stream_sharded", "small"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            b = ckpt.load_index(os.path.join(tmp, name))
+            b.place_on_mesh(mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            row = {"held_bytes": torch.cuda.memory_allocated() - before,
+                   "device_memory_bytes": b.device_memory_bytes(),
+                   "leading": [getattr(b.index, f).shape[0] for f in
+                               ("cells", "vec_start", "base_q", "scales",
+                                "base_f")]}
+            if name == "stream_sharded":
+                b.insert(data["inserts"], ids=data["insert_ids"])
+                b.delete(data["deletes"])
+            cap = getattr(b, "tail_cap", 0)
+            nq = len(q) if name != "small" else SHARD_MESH["batch"]
+            for label, params in _mesh_params(b).items():
+                zero_counts(counters)
+                with comm.count_collectives() as cnt:
+                    ids, dists, secs = _serve_batches(b, q[:nq], params,
+                                                      SHARD_MESH["batch"])
+                counts = read_counts(counters)
+                if name != "small":
+                    launches = {k: launches[k] + counts[k] for k in counts}
+                batches = -(-nq // SHARD_MESH["batch"])
+                row[label] = {"seconds": secs, "qps": nq / secs,
+                              "bytes_per_batch": cnt["total_bytes"] / batches,
+                              "m_shard": _mesh_width(b, params), "cap": cap}
+                arrays[f"{name}/{label}/ids"] = ids.cpu().numpy()
+                arrays[f"{name}/{label}/dists"] = dists.cpu().numpy()
+            res[name] = row
+            del b
+            torch.cuda.empty_cache()
+        res["launches"] = launches
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        if rank == 0:
+            np.savez(os.path.join(tmp, "rank0.npz"), **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_shard_mesh(ds, kept: dict) -> dict:
+    """The 1M sharded index (2 shards) saved under build/, then served by
+    two ranks on the one card over Gloo with CUDA tensors, each holding
+    one shard (``place_on_mesh``); the same for a stream_sharded copy
+    after 1,000 inserts and 1,000 deletes on both ranks.  Checks rank 0's
+    ids and dists bit-equal to the single-device backends', each rank's
+    device bytes within 10% of ``device_memory_bytes()``, the merge bytes
+    a batch the closed form and those of a 20k index of the same variant;
+    records the placed QPS beside the single-device QPS.  Returns the
+    ranks' kernel launches, summed."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import ckpt
+    from repro_torch.anns import registry
+
+    t_phase = time.perf_counter()
+    cfg = SHARD_MESH
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="shard_mesh_", dir=os.path.join(ROOT, "build"))
+    row = {"phase": "shard_mesh", "ranks": 2, "config": cfg}
+    try:
+        sharded = kept["sharded"]
+        rng = np.random.default_rng(11)
+        q = ds.queries[:cfg["queries"]]
+        ins = (ds.base[rng.integers(0, len(ds.base), cfg["inserts"])]
+               + np.float32(0.01))
+        ins_ids = np.arange(10 ** 7, 10 ** 7 + cfg["inserts"], dtype=np.int32)
+        dels = rng.choice(sharded.index.n, cfg["deletes"], replace=False)
+        np.savez(os.path.join(tmp, "inputs.npz"), queries=q, inserts=ins,
+                 insert_ids=ins_ids, deletes=dels)
+
+        t0 = time.perf_counter()
+        ckpt.save_index(os.path.join(tmp, "sharded"), sharded)
+        stream = registry.create(
+            "stream_sharded", dataclasses.replace(
+                sharded.variant, backend="stream_sharded",
+                tail_cap=cfg["tail_cap"]), metric=ds.metric, device="cuda")
+        stream.from_state_dict(sharded.to_state_dict())
+        ckpt.save_index(os.path.join(tmp, "stream_sharded"), stream)
+        small = registry.create("sharded", sharded.variant, metric=ds.metric,
+                                device="cuda")
+        small.build(ds.base[:cfg["n_small"]])
+        ckpt.save_index(os.path.join(tmp, "small"), small)
+        del small
+        row["save_s"] = time.perf_counter() - t0
+
+        # the single-device answers (not counted: the path is the ranks')
+        stream.insert(ins, ids=ins_ids)
+        stream.delete(dels)
+        single = {}
+        for name, b in (("sharded", sharded), ("stream_sharded", stream)):
+            for label, params in _mesh_params(b).items():
+                ids, dists, secs = _serve_batches(b, q, params, cfg["batch"])
+                single[name, label] = (ids.cpu().numpy(), dists.cpu().numpy(),
+                                       len(q) / secs)
+        del stream
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        with _stdout_to_stderr():
+            mp.start_processes(_shard_mesh_rank, args=(
+                os.path.join(tmp, "store"), tmp), nprocs=2, join=True,
+                start_method="spawn")
+        row["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = np.load(os.path.join(tmp, "rank0.npz"))
+        for name in ("sharded", "stream_sharded"):
+            out = {}
+            for label in ("ef64", "all_cells"):
+                ids, dists, qps = single[name, label]
+                check(np.array_equal(got[f"{name}/{label}/ids"], ids)
+                      and np.array_equal(got[f"{name}/{label}/dists"], dists),
+                      f"shard_mesh {name} {label}: rank 0 differs from one "
+                      f"device on {int((got[f'{name}/{label}/ids'] != ids).any(1).sum())} "
+                      f"of {len(ids)} queries")
+                per = [rk[name][label] for rk in ranks]
+                want = _mesh_merge_bytes(2, cfg["batch"], per[0]["m_shard"],
+                                         per[0]["cap"])
+                small = ranks[0]["small"][label]
+                check(all(p["bytes_per_batch"] == want for p in per),
+                      f"shard_mesh {name} {label}: {per[0]['bytes_per_batch']}"
+                      f" bytes a batch, closed form {want}")
+                if name == "sharded":
+                    check(small["bytes_per_batch"] == want,
+                          f"shard_mesh {label}: 20k merges "
+                          f"{small['bytes_per_batch']} bytes a batch, 1M "
+                          f"{want}")
+                out[label] = {"qps_placed": per[0]["qps"],
+                              "qps_single": qps,
+                              "bytes_per_batch": want,
+                              "bytes_per_batch_20k": small["bytes_per_batch"],
+                              "m_shard": per[0]["m_shard"],
+                              "ids_equal": True}
+            held = [rk[name]["held_bytes"] for rk in ranks]
+            dev_b = ranks[0][name]["device_memory_bytes"]
+            out["held_bytes"], out["device_memory_bytes"] = held, dev_b
+            out["leading"] = ranks[0][name]["leading"]
+            check(out["leading"] == [1] * 5, f"shard_mesh {name}: {out}")
+            if name == "sharded":
+                check(all(abs(h - dev_b) <= SHARD_MESH_HELD_TOL * dev_b
+                          for h in held),
+                      f"shard_mesh: ranks hold {held} bytes, one shard's "
+                      f"layout is {dev_b}")
+            row[name] = out
+        launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                    for k in ranks[0]["launches"]}
+        row["launches"] = launches
+        check(all(launches[k] > 0 for k in ("distance", "topk",
+                                            "qdist.cell_scan")),
+              f"shard_mesh launched no distance / topk / cell scan: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 14. dryrun: two cells of the dry-run on fake 256 / 512-rank worlds
+# ---------------------------------------------------------------------------
+#: (arch, shape, meshes): the dry-run's CLI flags of each cell
+DRYRUN_CELLS = [("glm4-9b", "train_4k", ["--both-meshes"]),
+                ("deepseek-moe-16b", "decode_32k", [])]
+
+
+def _dryrun_expected_args(cfg, shape, axes) -> int:
+    """This rank's argument bytes from the specs alone: parameter slices,
+    (train) AdamW's fp32 m / v / master ZeRO parts and the batch, (serve)
+    the inputs, caches and the cache length."""
+    from repro_torch.dist.fsdp import shard_specs
+    from repro_torch.dist.sharding import local_shape
+    from repro_torch.launch import specs
+    from repro_torch.models import model
+
+    def nbytes(shp, spec, item):
+        return int(np.prod(local_shape(tuple(shp), spec, axes),
+                           dtype=np.int64)) * item
+
+    lm = model.DecoderLM(cfg, device="meta")
+    dp = tuple(a for a in ("pod", "data", "replica") if a in axes)
+    pspecs, zspecs, _ = shard_specs(lm, axes, dp_axes=dp)
+    total = sum(nbytes(p.shape, pspecs[n], p.element_size())
+                for n, p in lm.named_parameters())
+    if shape.kind == "train":
+        total += sum(nbytes(p.shape, zspecs[n], 12)
+                     for n, p in lm.named_parameters())
+        batch, bspecs = specs.train_specs(cfg, shape, axes)
+        return total + sum(nbytes(t.shape, bspecs[k], t.element_size())
+                           for k, t in batch.items())
+    (x, caches, _), (xs, cs, _) = specs.decode_specs(cfg, shape, axes)
+    total += sum(nbytes(t.shape, xs[k], t.element_size()) for k, t in x.items())
+    total += sum(nbytes(t.shape, sp[n], t.element_size())
+                 for c, sp in zip(caches, cs) for n, t in c.items())
+    return total + 4
+
+
+def phase_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun`` in a subprocess (CPU and meta
+    tensors only: a fake process group of 256 / 512 ranks) for
+    DRYRUN_CELLS; checks each artifact's argument bytes against the specs'
+    local_shape sum and its collective bytes against gather-on-use's
+    closed form (``dryrun.gather_on_use_bytes``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import gather_on_use_bytes, mesh_axes
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dryrun_", dir=os.path.join(ROOT, "build"))
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    cells = []
+    try:
+        for arch, shape_name, flags in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape_name, "--out",
+                            tmp, *flags], check=True, env=env, timeout=300,
+                           stdout=sys.stderr)
+            secs = time.perf_counter() - t0
+            cfg, shape = get_config(arch), SHAPES[shape_name]
+            for tag in (("sp", "mp") if flags else ("sp",)):
+                with open(os.path.join(tmp, f"{arch}__{shape_name}__{tag}.json")) as f:
+                    art = json.load(f)
+                axes = mesh_axes(multi_pod=tag == "mp")
+                want_args = _dryrun_expected_args(cfg, shape, axes)
+                want_coll = gather_on_use_bytes(cfg, shape, axes)
+                got = {"arch": arch, "shape": shape_name, "mesh": art["mesh"],
+                       "ranks": art["num_devices"],
+                       "argument_bytes": art["memory"]["argument_bytes"],
+                       "output_bytes": art["memory"]["output_bytes"],
+                       "flops": art["flops"],
+                       "bytes_accessed": art["bytes_accessed"],
+                       "collectives": art["collectives"],
+                       "closed_form_bytes": want_coll,
+                       "costing_s": art["compile_costing_s"],
+                       "cli_s": secs}
+                check(art["memory"]["argument_bytes"] == want_args,
+                      f"dryrun {arch} {shape_name} {tag}: argument bytes "
+                      f"{art['memory']['argument_bytes']}, specs {want_args}")
+                check(art["collectives"]["total_bytes"] == want_coll,
+                      f"dryrun {arch} {shape_name} {tag}: collective bytes "
+                      f"{art['collectives']['total_bytes']}, closed form "
+                      f"{want_coll}")
+                check(art["flops"] > 0 and art["bytes_accessed"] > 0,
+                      f"dryrun {arch} {shape_name} {tag}: {art}")
+                cells.append(got)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "dryrun", "torch": torch.__version__, "cells": cells,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -3210,6 +3566,7 @@ def main() -> None:
     launches["tune"], frontier = phase_tune(ds, kept)
     launches["stream"], stream_vs_plain = phase_stream(ds, kept)
     launches["async"] = phase_async(ds, kept["ivf"], frontier)
+    launches["shard_mesh"] = phase_shard_mesh(ds, kept)
     del ds, kept, frontier
     torch.cuda.empty_cache()
     phase_ref20k()
@@ -3220,6 +3577,7 @@ def main() -> None:
     launches["zoo"] = phase_zoo()
     torch.cuda.empty_cache()
     launches["dist"] = phase_dist()
+    phase_dryrun()
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     # the stream path's layouts, held against the plain versions there
     for stage in stream_vs_plain.values():

@@ -17,9 +17,18 @@ The cell-major IVF layout is sliced into whole-cell shards
 
 The per-shard body is unrolled over the shards, each on the same shapes as
 the ``ivf`` search, so ``n_shards=1`` is bit-identical to ``ivf`` and any
-shard count returns ``ivf``'s ids at the all-cells probe.  The reference's
-mesh-placed form (``place_on_mesh``, one shard per device with an
-all_gather merge) is not ported yet.
+shard count returns ``ivf``'s ids at the all-cells probe.
+
+:meth:`ShardedBackend.place_on_mesh` switches to the placed form, one
+process a shard (SPMD: every rank makes the same calls with the same
+queries): routing runs whole on every rank, each rank scans and reranks
+its own shard in one ``_scan_rerank_block`` at the single-device shapes,
+``dist.comm.all_gather`` stacks the (S, B, m) shortlists and
+``all_reduce`` sums the scanned count, and the merge runs unchanged, so
+every rank returns the single-device search's ids and dists bit for bit.
+The merge moves ``S * B * m * (4 + 4 + 4 + 1)`` bytes (int32 positions,
+scan and rerank dists, validity gathered as uint8) plus the int64
+scanned count, whatever N.
 """
 from __future__ import annotations
 
@@ -34,10 +43,12 @@ from repro_torch.anns.backends.ivf import (_probe_floor_nprobe, _quantized,
 from repro_torch.anns.backends.quantized import fp32_rescore
 from repro_torch.anns.filters import AttributeColumns
 from repro_torch.anns.ivf.layout import build_ivf
-from repro_torch.anns.ivf.sharding import (ShardedIvfIndex, shard_ivf,
-                                           shard_memory_bytes, sharded_stats)
+from repro_torch.anns.ivf.sharding import (ShardedIvfIndex, place_on_mesh,
+                                           shard_ivf, shard_memory_bytes,
+                                           sharded_stats)
 from repro_torch.anns.registry import register
 from repro_torch.device import as_f32, resolve_device
+from repro_torch.dist import comm
 from repro_torch.kernels.distance.ops import pairwise_distance
 from repro_torch.kernels.qdist.ops import quantized_cell_scan
 from repro_torch.kernels.topk.ops import topk_smallest
@@ -134,6 +145,42 @@ def _sharded_search(idx: ShardedIvfIndex, q32: torch.Tensor, fmask=None, *,
     return torch.where(out_d < BIG, idx.ids[out_pos], -1), out_d, scanned
 
 
+def gather_shards(mesh, *parts):
+    """Stack each rank's (B, m) part into (S, B, m) in shard order on
+    every rank (one all-gather a part; bools travel as uint8)."""
+    out = []
+    for t in parts:
+        if t.dtype == torch.bool:
+            out.append(comm.all_gather(t.to(torch.uint8)[None], mesh,
+                                       "shard").bool())
+        else:
+            out.append(comm.all_gather(t[None], mesh, "shard"))
+    return out
+
+
+def _placed_search(idx: ShardedIvfIndex, q32: torch.Tensor, fmask=None, *,
+                   nprobe: int, k: int, m: int, metric: str,
+                   quantized: bool):
+    """:func:`_sharded_search` on a placed index (see the module
+    docstring): ``fmask`` is this rank's (1, Npad) row; positions travel
+    as int32."""
+    n_shards, pad = idx.n_shards, idx.cell_pad
+    owner, row = _route(idx.centroids, idx.cell_shard, idx.cell_row, q32,
+                        nprobe=nprobe, metric=metric)
+    m_shard = min(m, nprobe * pad)
+    gpos, sd, rd, valid, scanned = _scan_rerank_block(
+        idx.shard, idx.cells[0], idx.vec_start[0], idx.base_q[0],
+        idx.scales[0], idx.base_f[0], q32, owner, row,
+        None if fmask is None else fmask[0],
+        m_shard=m_shard, metric=metric, quantized=quantized)
+    gpos, sd, rd, valid = gather_shards(idx.mesh, gpos.int(), sd, rd, valid)
+    scanned = comm.all_reduce(scanned, idx.mesh, "shard")
+    m_total = min(m, n_shards * m_shard)
+    out_pos, out_d = _merge_topk(gpos.long(), sd, rd, valid, k=k,
+                                 m_total=m_total)
+    return torch.where(out_d < BIG, idx.ids[out_pos], -1), out_d, scanned
+
+
 @register("sharded")
 class ShardedBackend(AttributeColumns):
     """Cell-routed multi-shard IVF on one device (see module docstring)."""
@@ -180,8 +227,9 @@ class ShardedBackend(AttributeColumns):
     def _shard_mask_dev(self, predicate):
         """Per-shard (S, Npad) form of the predicate bitmask on the
         device: the global position mask sliced by ``vec_bounds`` into
-        each shard's padded local-position row (pad rows False).  Cached
-        per predicate."""
+        each shard's padded local-position row (pad rows False); on a
+        placed index this rank's row alone, (1, Npad).  Cached per
+        predicate."""
         hit = self._shard_fmask.get(predicate)
         if hit is not None:
             return hit
@@ -193,9 +241,20 @@ class ShardedBackend(AttributeColumns):
         for j in range(idx.n_shards):
             v0, v1 = int(vb[j]), int(vb[j + 1])
             m[j, : v1 - v0] = gmask[v0:v1]
+        if idx.mesh is not None:
+            m = m[idx.shard:idx.shard + 1]
         dev = torch.from_numpy(m).to(self.device)
         self._shard_fmask[predicate] = dev
         return dev
+
+    def place_on_mesh(self, mesh) -> None:
+        """Keep only this rank's shard on a ``("shard",)`` mesh of one rank
+        a shard (:func:`repro_torch.launch.mesh.make_shard_mesh`) and
+        switch to the placed search (see the module docstring).  Every
+        rank calls it, and from then on every rank makes the same calls."""
+        assert self.index is not None, "build() first"
+        self.index = place_on_mesh(self.index, mesh)
+        self._clear_filter_caches()       # re-derive masks with placement
 
     def stats(self) -> dict:
         assert self.index is not None, "build() first"
@@ -217,7 +276,8 @@ class ShardedBackend(AttributeColumns):
         m = shortlist_width(p, k, idx.n, nprobe, idx.cell_pad)
         fmask = (self._shard_mask_dev(p.filter)
                  if p.filter is not None else None)
-        out_ids, out_d, scanned = _sharded_search(
+        search = _sharded_search if idx.mesh is None else _placed_search
+        out_ids, out_d, scanned = search(
             idx, as_f32(queries, self.device), fmask, nprobe=nprobe, k=k,
             m=m, metric=self.metric, quantized=_quantized(params))
         return SearchResult(ids=out_ids, dists=out_d, steps=nprobe,
@@ -243,6 +303,9 @@ class ShardedBackend(AttributeColumns):
         (``shardN/...``), as in the reference; format v3."""
         idx = self.index
         assert idx is not None, "build() first"
+        if idx.mesh is not None:
+            raise ValueError("a placed index holds one shard: save it "
+                             "before place_on_mesh")
 
         def host(t):
             return np.array(t.cpu())

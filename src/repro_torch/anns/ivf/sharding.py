@@ -12,11 +12,14 @@ The per-shard arrays are stacked along a leading shard axis.  Only the
 coarse quantizer, the routing maps and the position -> id remap are
 shared; the fp32 rerank store is ``base_f``, the same byte-identical
 slicing as ``base_q``, so each shard reranks its own shortlist and the
-merge moves only (S, B, m) ids and scores.  Placing the shards on several
-devices (the reference's ``place_on_mesh``) is not ported yet.
+merge moves only (S, B, m) ids and scores.
+
+:func:`place_on_mesh` places the shards across processes, one rank a
+shard: each rank keeps its own shard's slices and drops the others.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,6 +71,9 @@ class ShardedIvfIndex:
     cell_bounds: np.ndarray    # (S+1,) cells per shard (host)
     vec_bounds: np.ndarray     # (S+1,) vectors per shard (host)
     metric: str
+    # the ("shard",) DeviceMesh once placed (:func:`place_on_mesh`): the
+    # per-shard leaves then hold this rank's shard alone, as (1, ...)
+    mesh: object = None
 
     @property
     def n(self) -> int:
@@ -79,7 +85,15 @@ class ShardedIvfIndex:
 
     @property
     def n_shards(self) -> int:
-        return int(self.cells.shape[0])
+        return int(len(self.cell_bounds) - 1)
+
+    @property
+    def shard(self) -> int | None:
+        """This rank's shard on a placed index, else None."""
+        if self.mesh is None:
+            return None
+        from repro_torch.dist import comm
+        return comm.axis_index(self.mesh, "shard")
 
     @property
     def cell_pad(self) -> int:
@@ -149,6 +163,34 @@ def shard_ivf(index: IvfIndex, n_shards: int) -> ShardedIvfIndex:
         metric=index.metric)
 
 
+def place_on_mesh(index: ShardedIvfIndex, mesh) -> ShardedIvfIndex:
+    """This rank's placement of ``index`` on a ``("shard",)`` mesh of one
+    rank a shard (:func:`repro_torch.launch.mesh.make_shard_mesh`): the
+    per-shard leaves (``cells``, ``vec_start``, ``base_q``, ``scales``,
+    ``base_f``) become copies of this rank's ``(1, ...)`` slices, on the
+    device they were on, and the other shards' are dropped; the routing
+    and merge state (``centroids``, ``cell_shard``, ``cell_row``, ``ids``)
+    stays whole.  No leaf is an (N, d) fp32 array: the search moves only
+    the (S, B, m) shortlists (:mod:`repro_torch.anns.backends.sharded`).
+    Every rank of the mesh calls it, with the same index."""
+    from repro_torch.dist import comm
+    if index.mesh is not None:
+        raise ValueError("the index is already placed on a mesh")
+    if comm.axis_size(mesh, "shard") != index.n_shards:
+        raise ValueError(f"{index.n_shards} shards on a mesh of "
+                         f"{comm.axis_size(mesh, 'shard')} ranks: one rank a "
+                         f"shard")
+    j = comm.axis_index(mesh, "shard")
+
+    def mine(t):
+        return t[j:j + 1].clone()
+
+    return dataclasses.replace(
+        index, cells=mine(index.cells), vec_start=mine(index.vec_start),
+        base_q=mine(index.base_q), scales=mine(index.scales),
+        base_f=mine(index.base_f), mesh=mesh)
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -161,6 +203,7 @@ def shard_memory_bytes(index: ShardedIvfIndex) -> tuple[int, int]:
     one device would hold with the shards placed one per device: the
     shared state plus one shard's slice of each stacked array — uniform
     by construction, since stacking pads every shard to the same width.
+    A placed index (one shard's slices held) gives the same two numbers.
     """
     stacked = (index.cells, index.vec_start, index.base_q, index.scales,
                index.base_f)
@@ -170,6 +213,8 @@ def shard_memory_bytes(index: ShardedIvfIndex) -> tuple[int, int]:
     repl_bytes = (sum(_nbytes(a) for a in replicated)
                   + index.offsets.nbytes + index.cell_bounds.nbytes
                   + index.vec_bounds.nbytes)
+    if index.mesh is not None:
+        stacked_bytes *= index.n_shards
     per_device = repl_bytes + stacked_bytes // max(index.n_shards, 1)
     return repl_bytes + stacked_bytes, per_device
 

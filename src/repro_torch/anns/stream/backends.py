@@ -48,9 +48,15 @@ on the card, and the commit publishes tensors the same stream wrote.
 Checkpointing: ``to_state_dict`` extends the family format with tail
 leaves and packed tombstone bitmaps; ``to_delta_dict`` /
 ``apply_delta_dict`` carry just the mutable leaves and (``seqno``,
-``epoch``) for :func:`repro_torch.ckpt.save_index_delta`.  The reference's
-mesh placement (``place_on_mesh``) waits for cross-process sharding
-(ROADMAP item 6).
+``epoch``) for :func:`repro_torch.ckpt.save_index_delta`.
+
+Placement across processes (``StreamingShardedBackend.place_on_mesh``,
+one rank a shard) is SPMD: every rank applies the same inserts, deletes
+and compactions (the host masters stay whole on every rank, and one
+history compacts to the same bytes), while each rank's device view holds
+only its own shard's live mask and tail.  A compaction gathers the base
+slices from every rank, re-shards and re-places; it runs inline, on every
+rank at once (the background compactor refuses a placed index).
 """
 from __future__ import annotations
 
@@ -68,11 +74,13 @@ from repro_torch.anns.filters import (FilterError, UnknownAttribute,
                                       check_attributes)
 from repro_torch.anns.ivf.kmeans import assign, split_oversized
 from repro_torch.anns.ivf.layout import layout_from_assignments
-from repro_torch.anns.ivf.sharding import shard_ivf
+from repro_torch.anns.ivf.sharding import place_on_mesh, shard_ivf
 from repro_torch.anns.registry import register
-from repro_torch.anns.stream.search import (stream_ivf_search,
+from repro_torch.anns.stream.search import (placed_stream_search,
+                                            stream_ivf_search,
                                             stream_sharded_search)
 from repro_torch.device import as_f32
+from repro_torch.dist import comm
 
 DEFAULT_TAIL_CAP = 256
 
@@ -770,7 +778,9 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
     def _global_base(self):
         idx = self.index
         vb = np.asarray(idx.vec_bounds)
-        bf = _host(idx.base_f)
+        # a placed index holds one shard: gather the others' (a collective)
+        bf = _host(idx.base_f if idx.mesh is None
+                   else comm.all_gather(idx.base_f, idx.mesh, "shard"))
         parts = [bf[j, : int(vb[j + 1] - vb[j])]
                  for j in range(idx.n_shards)]
         return np.concatenate(parts, axis=0), _host(idx.ids)
@@ -781,8 +791,18 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
         return out
 
     def _finalize_layout(self, inner):
-        """The re-shard happens in *prepare*, off the serving path."""
-        return shard_ivf(inner, self.index.n_shards)
+        """The re-shard (and re-placement) happens in *prepare*, off the
+        serving path."""
+        out = shard_ivf(inner, self.index.n_shards)
+        mesh = self.index.mesh
+        return out if mesh is None else place_on_mesh(out, mesh)
+
+    def place_on_mesh(self, mesh) -> None:
+        """:meth:`ShardedBackend.place_on_mesh`, then a fresh view holding
+        this rank's live mask and tail alone (see the module docstring)."""
+        with self._lock:
+            ShardedBackend.place_on_mesh(self, mesh)
+            self._sync()
 
     def _route_to_shards(self, vecs: np.ndarray) -> np.ndarray:
         """Owning shard per vector: nearest cell through the existing
@@ -824,7 +844,8 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
                    tail_attrs=None) -> _SearchView:
         """Device view over ``index``: the global live mask (and attribute
         columns) expand to the per-shard padded layout, pad rows dead (-1
-        for attributes, which no predicate over real values matches)."""
+        for attributes, which no predicate over real values matches).  A
+        placed index's view holds this rank's shard's rows alone."""
         vb = np.asarray(index.vec_bounds)
         npad = int(index.base_q.shape[1])
 
@@ -836,23 +857,30 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
                 exp[j, : v1 - v0] = col[v0:v1]
             return exp
 
+        rows = (slice(None) if index.mesh is None
+                else slice(index.shard, index.shard + 1))
+
+        def dev(a):
+            return self._dev(np.asarray(a)[rows])
+
         live = per_shard(live_global, False, bool)
         dattrs = dtail = None
         if attrs is not None:
-            dattrs = {c: self._dev(per_shard(col, -1, np.int32))
+            dattrs = {c: dev(per_shard(col, -1, np.int32))
                       for c, col in attrs.items()}
-            dtail = {c: self._dev(a) for c, a in tail_attrs.items()}
+            dtail = {c: dev(a) for c, a in tail_attrs.items()}
         ids_ext = torch.cat([index.ids,
                              self._dev(np.asarray(tail_ids).reshape(-1))])
-        return _SearchView(index, self._dev(live), self._dev(tail_vecs),
-                           self._dev(tail_live), ids_ext, seqno, epoch,
-                           dattrs, dtail)
+        return _SearchView(index, dev(live), dev(tail_vecs), dev(tail_live),
+                           ids_ext, seqno, epoch, dattrs, dtail)
 
     def _search_view(self, view: _SearchView, queries,
                      params: SearchParams) -> SearchResult:
         k, nprobe, m, live, tail_live = self._view_plan(
             view, params, view.index.n_shards * self.tail_cap)
-        out_ids, out_d, scanned = stream_sharded_search(
+        search = (stream_sharded_search if view.index.mesh is None
+                  else placed_stream_search)
+        out_ids, out_d, scanned = search(
             view.index, live, view.tail_vecs, tail_live, view.ids_ext,
             as_f32(queries, self.device), nprobe=nprobe, k=k, m=m,
             metric=self.metric, quantized=_quantized(params))

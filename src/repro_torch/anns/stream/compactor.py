@@ -84,6 +84,11 @@ class BackgroundCompactor:
 
     def __init__(self, backend, *, monitors=(), warm=None,
                  rebase: bool = True, nice: int | None = 19):
+        if getattr(getattr(backend, "index", None), "mesh", None) is not None:
+            raise ValueError(
+                "a placed index compacts on every rank at once, and this "
+                "worker swaps on its own timing; a leader / follower loop "
+                "for timing-driven serving loops is open work (ROADMAP §1)")
         self.backend = backend
         self.monitors = list(monitors)
         self.warm = warm

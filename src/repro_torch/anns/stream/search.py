@@ -21,8 +21,9 @@ The final ids are read off ``ids_ext`` (the base position -> id table
 concatenated with the tail id table); slots still at BIG come back as -1.
 Every shape is fixed by the layout and the tail's capacity, so inserts and
 deletes change tensor contents, never the (B, k, m) shapes that reach the
-kernels.  The reference's mesh-placed form (``make_placed_stream_search``)
-waits for cross-process sharding (ROADMAP item 6).
+kernels.  :func:`placed_stream_search` is the form placed across
+processes, one rank a shard, whose all-gather also carries the (S, B,
+cap) tail distances.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.anns import search as search_lib
 from repro_torch.anns.backends.quantized import fp32_rescore
-from repro_torch.anns.backends.sharded import _route
+from repro_torch.anns.backends.sharded import _route, gather_shards
+from repro_torch.dist import comm
 from repro_torch.kernels.distance.ops import pairwise_distance
 from repro_torch.kernels.qdist.ops import quantized_cell_scan
 from repro_torch.kernels.topk.ops import topk_smallest
@@ -185,4 +187,32 @@ def stream_sharded_search(idx, live, tail_vecs, tail_live, ids_ext, q32, *,
     m_total = min(m, n_shards * m_shard)
     out_ids, out_d = _stream_merge_topk(gpos, sd, rd, valid, td, ids_ext,
                                         k=k, m_total=m_total, n=idx.n)
+    return out_ids, out_d, scanned
+
+
+def placed_stream_search(idx, live, tail_vecs, tail_live, ids_ext, q32, *,
+                         nprobe: int, k: int, m: int, metric: str,
+                         quantized: bool):
+    """:func:`stream_sharded_search` on a placed index, one rank a shard:
+    routing whole on every rank, this rank's :func:`_stream_scan_block` at
+    the single-device shapes over its own ``live`` (1, Npad) and tail
+    (1, cap, d) / (1, cap) rows, one all-gather each of the (S, B, m)
+    shortlists and the (S, B, cap) tail distances, the scanned count
+    summed, then the unchanged merge (the reference's
+    ``make_placed_stream_search``)."""
+    n_shards, pad = idx.n_shards, idx.cell_pad
+    owner, row = _route(idx.centroids, idx.cell_shard, idx.cell_row, q32,
+                        nprobe=nprobe, metric=metric)
+    m_shard = min(m, nprobe * pad)
+    gpos, sd, rd, valid, td, scanned = _stream_scan_block(
+        idx.shard, idx.cells[0], idx.vec_start[0], idx.base_q[0],
+        idx.scales[0], idx.base_f[0], live[0], tail_vecs[0], tail_live[0],
+        q32, owner, row, m_shard=m_shard, metric=metric, quantized=quantized)
+    gpos, sd, rd, valid, td = gather_shards(idx.mesh, gpos.int(), sd, rd,
+                                            valid, td)
+    scanned = comm.all_reduce(scanned, idx.mesh, "shard")
+    m_total = min(m, n_shards * m_shard)
+    out_ids, out_d = _stream_merge_topk(gpos.long(), sd, rd, valid, td,
+                                        ids_ext, k=k, m_total=m_total,
+                                        n=idx.n)
     return out_ids, out_d, scanned

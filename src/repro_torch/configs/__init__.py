@@ -48,5 +48,14 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return cfg.reduced() if reduced else cfg
 
 
+def dryrun_cells() -> list[tuple[str, str]]:
+    """All applicable (arch, shape) dry-run cells, in the reference's
+    order: 34 of 40, ``long_500k`` only for the sub-quadratic archs."""
+    return [(arch, sname) for arch in ASSIGNED_ARCHS
+            for sname, shape in SHAPES.items()
+            if shape_applicable(_REGISTRY[arch], shape)]
+
+
 __all__ = ["BlockSpec", "ModelConfig", "InputShape", "SHAPES",
-           "shape_applicable", "get_config", "list_archs", "ASSIGNED_ARCHS"]
+           "shape_applicable", "get_config", "list_archs", "dryrun_cells",
+           "ASSIGNED_ARCHS"]

@@ -45,15 +45,39 @@ def _spec_axes(spec: tuple) -> set:
     return {a for e in spec for a in _axes(e)}
 
 
+def shard_specs(model, mesh, *, tp_axis: str = "model", dp_axes: tuple,
+                fsdp: bool = False) -> tuple[dict, dict, set]:
+    """(parameter specs, ZeRO specs, the E-sharded expert leaves used as
+    sliced) of ``model`` on ``mesh`` (a ``DeviceMesh`` or ``{axis:
+    size}``): what :class:`Sharded` keeps, and what the dry-run costs."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    specs = param_shardings(shapes, mesh, fsdp=fsdp)
+    local: set[str] = set()
+    if tp_axis in axis_sizes(mesh):
+        for prefix, mod in model.named_modules():
+            if isinstance(mod, MoE):
+                for leaf in EXPERT_LEAVES:
+                    n = f"{prefix}.{leaf}"
+                    specs[n] = (tp_axis,) + (None,) * (len(shapes[n]) - 1)
+                    local.add(n)
+    # a slice already cut over a DP axis (fsdp) is its own ZeRO part
+    zero = zero_shardings(specs, shapes, mesh)
+    zero = {n: s if _spec_axes(s) & set(dp_axes) else zero[n]
+            for n, s in specs.items()}
+    return specs, zero, local
+
+
 class Sharded:
     """This rank's slices of ``model`` on ``mesh``: the parameters are cut
     in place (``p.data`` becomes the slice), so ``named_parameters()``
     gives the slices from then on.  ``dp_axes`` are the axes the batch is
     split over: the Runtime's ``data_axes()``, which its MoE blocks sum
-    their aux statistics over."""
+    their aux statistics over.  ``fsdp`` also cuts each parameter over
+    the DP axes (``param_shardings(fsdp=True)``); its optimizer state is
+    then the parameter slice's own shape."""
 
     def __init__(self, model, mesh, *, tp_axis: str = "model",
-                 dp_axes: tuple):
+                 dp_axes: tuple, fsdp: bool = False):
         self.model, self.mesh = model, mesh
         self.dp = tuple(dp_axes)
         self.sizes = axis_sizes(mesh)
@@ -62,17 +86,9 @@ class Sharded:
             self.world *= n
         named = dict(model.named_parameters())
         self.shapes = {n: tuple(p.shape) for n, p in named.items()}
-        specs = param_shardings(self.shapes, mesh)
-        self.local: set[str] = set()     # used as sliced, never gathered
-        if tp_axis in self.sizes:
-            for prefix, mod in model.named_modules():
-                if isinstance(mod, MoE):
-                    for leaf in EXPERT_LEAVES:
-                        n = f"{prefix}.{leaf}"
-                        specs[n] = (tp_axis,) + (None,) * (len(self.shapes[n]) - 1)
-                        self.local.add(n)
-        self.specs = specs
-        self.zero_specs = zero_shardings(specs, self.shapes, mesh)
+        self.specs, self.zero_specs, self.local = shard_specs(
+            model, mesh, tp_axis=tp_axis, dp_axes=self.dp, fsdp=fsdp)
+        specs = self.specs
         with torch.no_grad():
             for n, p in named.items():
                 p.data = local_slice(p.data, specs[n], mesh).clone()

@@ -71,14 +71,17 @@ def write_prefill(cache: SeqSlice, k: torch.Tensor, v: torch.Tensor) -> None:
     n = cache["k"].shape[1]
     slot = torch.arange(cache.offset, cache.offset + n, device=k.device)
     if size >= S:
-        tok, hit = slot, slot < S
+        tok, hit = slot.clamp(max=S - 1), slot < S
     else:
         first = S - size
         tok = first + (slot - first) % size
         hit = torch.ones_like(slot, dtype=torch.bool)
-    j = torch.nonzero(hit)[:, 0]
-    cache["k"][:, j] = k[:, tok[j]].to(cache["k"].dtype)
-    cache["v"][:, j] = v[:, tok[j]].to(cache["v"].dtype)
+    # a masked write, not a gather of the hit slots: no shape depends on
+    # the values (the dry-run runs this on meta tensors)
+    hit = hit[None, :, None, None]
+    for name, new in (("k", k), ("v", v)):
+        cache[name].copy_(torch.where(hit, new[:, tok].to(cache[name].dtype),
+                                      cache[name]))
 
 
 @torch.no_grad()

@@ -9,7 +9,12 @@ and serve batched queries through :class:`AnnsServer`.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The printed
 ``served … QPS`` and ``recall@k=`` lines match ``repro.launch.serve``.
-``--n-shards`` unrolls the shards on the one device.
+``--n-shards`` unrolls the shards on the one device; under a process
+group (``WORLD_SIZE`` > 1, as ``torchrun`` sets it: NCCL on ``cuda``,
+Gloo on ``cpu``) a ``sharded`` / ``stream_sharded`` index of one shard a
+rank is placed across the ranks instead, and only rank 0 prints::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --backend sharded --n-shards 2
 
 Built indexes ship without a rebuild: ``--save-index DIR`` checkpoints
 the built state, ``--load-index DIR`` restores it (the backend comes from
@@ -37,12 +42,20 @@ the default deadline.
 
 ``--filter EXPR`` serves every request under an attribute predicate;
 ``--filter-demo`` runs the scripted unfiltered-vs-filtered episode at
-three selectivities (greppable ``filter:`` lines).  The reference's mesh
-placement of sharded indexes waits for cross-process sharding.
+three selectivities (greppable ``filter:`` lines).
+
+Under a process group every rank makes the same search calls, so loops
+whose batches or picks come from timing raise there: ``--async``, the
+background compactor, and an SLO pick from a sweep of this run (sweep
+with ``--save-frontier``, then serve with ``--load-frontier``).  A
+leader / follower loop for them is open work (ROADMAP §1).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 
@@ -684,6 +697,47 @@ def main(argv=None):
                  "needs a frontier swept under the same predicate "
                  "(tune.sweep_frontier filters=...)")
 
+    grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if grouped:
+        timed = ("--async" if args.async_tier else
+                 "--tune with an SLO pick" if args.tune and (
+                     args.target_recall is not None
+                     or args.tenants is not None) else None)
+        if timed:
+            ap.error(f"{timed} forms its batches or picks from timing, which "
+                     f"the ranks of a process group would not agree on; a "
+                     f"leader / follower loop for timing-driven serving loops is "
+                     f"open work (ROADMAP §1)")
+    quiet = grouped and int(os.environ.get("RANK", "0")) != 0
+    with (contextlib.redirect_stdout(io.StringIO()) if quiet
+          else contextlib.nullcontext()):
+        return _serve(args, ap, grouped)
+
+
+def _serve(args, ap, grouped: bool):
+    from repro_torch.anns import registry
+    from repro_torch.device import resolve_device
+
+    if args.backend not in registry.available():
+        ap.error(f"unknown backend {args.backend!r}; "
+                 f"registered: {registry.available()}")
+    device = resolve_device(args.device)
+    if grouped:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        try:
+            return _serve_on(args, ap, device, grouped)
+        finally:
+            dist.destroy_process_group()
+    return _serve_on(args, ap, device, grouped)
+
+
+def _serve_on(args, ap, device, grouped: bool):
     import dataclasses
 
     import numpy as np
@@ -691,13 +745,7 @@ def main(argv=None):
     from repro_torch.anns import SearchParams, make_dataset, registry
     from repro_torch.anns.datasets import recall_at_k
     from repro_torch.anns.engine import GLASS_BASELINE, VariantConfig
-    from repro_torch.device import resolve_device
     from repro_torch.runtime.server import AnnsServer
-
-    if args.backend not in registry.available():
-        ap.error(f"unknown backend {args.backend!r}; "
-                 f"registered: {registry.available()}")
-    device = resolve_device(args.device)
 
     ds = make_dataset(args.dataset, n_base=args.n_base, n_query=args.n_query,
                       device=device)
@@ -740,6 +788,16 @@ def main(argv=None):
                      f"(stream_ivf/stream_sharded); "
                      f"{getattr(target, 'name', args.backend)!r} is "
                      f"read-only")
+
+    if getattr(target, "name", "") in ("sharded", "stream_sharded"):
+        from repro_torch.launch.mesh import shard_mesh_if_available
+        ns = target.index.n_shards
+        mesh = shard_mesh_if_available(ns)
+        if mesh is not None:
+            # each rank holds only its cell shard
+            target.place_on_mesh(mesh)
+            print(f"placed {ns} cell shards on {ns} devices "
+                  f"({target.device_memory_bytes()/1e6:.1f} MB/device)")
 
     if (args.filter or args.filter_demo) and target.attributes is None:
         # a restored index may carry its columns (attr/<col> leaves)
@@ -822,6 +880,12 @@ def main(argv=None):
             print(f"drift monitor attached (margin={margin:.3f}, "
                   f"max_tail_frac={args.max_tail_frac})")
             if supports_mutation(target):
+                if grouped:
+                    ap.error("the background compactor swaps layouts on its "
+                             "own timing, which the ranks of a process "
+                             "group would not agree on; a leader / follower "
+                             "loop for timing-driven serving loops is open work "
+                             "(ROADMAP §1)")
                 from repro_torch.anns.stream import BackgroundCompactor
                 server.attach_compactor(BackgroundCompactor(target))
                 print("background compactor attached (tail verdicts "

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import seq_decode
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash.ref import flash_ref
 from repro_torch.models.layers import _param, apply_rope, pdtype, rope_freqs
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fp32 softmax NaN-free
@@ -161,14 +162,19 @@ class Attention(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+        identity = rt is not None and rt.attn_core_identity   # costing
         if mode == "train":
-            o = chunked_attention(q, k, v, q_scale=cfg.q_scale, window=window,
-                                  softcap=cfg.attn_logit_softcap,
-                                  chunk=attn_chunk, impl=attn_impl)
+            o = q if identity else chunked_attention(
+                q, k, v, q_scale=cfg.q_scale, window=window,
+                softcap=cfg.attn_logit_softcap, chunk=attn_chunk,
+                impl=attn_impl)
         elif mode == "prefill":
-            o = flash_ops.causal_attention(q, k, v, q_scale=cfg.q_scale,
-                                           window=window,
-                                           softcap=cfg.attn_logit_softcap)
+            # meta tensors (the dry-run's costing) reach no kernel: the
+            # plain version computes their shapes
+            attend = flash_ref if q.is_meta else flash_ops.causal_attention
+            o = q if identity else attend(
+                q, k, v, q_scale=cfg.q_scale, window=window,
+                softcap=cfg.attn_logit_softcap)
             size = cache["k"].shape[1]
             if isinstance(cache, seq_decode.SeqSlice):
                 seq_decode.write_prefill(cache, k, v)

@@ -123,8 +123,12 @@ class MoE(nn.Module):
             pos = positions(flat, e, in_range)
             keep = in_range & (pos < cap)
         token = torch.arange(T * k, device=x.device) // k
-        buf = x.new_zeros((e, cap, d))
-        buf = buf.index_put((flat[keep], pos[keep]), x[token[keep]])
+        # a dropped assignment lands in a spare slot past the capacity, cut
+        # off below: no boolean-mask indexing, so shapes never depend on
+        # the routing (the dry-run runs this on meta tensors)
+        slot = torch.where(keep, pos, cap)
+        buf = x.new_zeros((e, cap + 1, d))
+        buf = buf.index_put((flat, slot), x[token])[:, :cap]
 
         h = activation(torch.bmm(buf, self.w_gate), self.act)
         y = torch.bmm(h * torch.bmm(buf, self.w_in), self.w_out)  # (E, C, d)

@@ -8,8 +8,15 @@ the sequence-sharded decode, with the reference's defaults.
 (:mod:`repro_torch.launch.mesh`) or None (one device).  With it set, the
 MoE blocks run expert-parallel over ``tp_axis`` and, with
 ``seq_shard_decode``, attention decodes over a sequence-sharded cache
-(:mod:`repro_torch.dist.seq_decode`).  The reference's cost-accounting
-knobs (``unroll_layers``, ``attn_core_identity``) serve its dry-run alone.
+(:mod:`repro_torch.dist.seq_decode`).
+
+``attn_core_identity`` is a costing knob of the dry-run
+(:mod:`repro_torch.launch.dryrun`): the train and prefill attention core
+returns ``o = q``, so the difference of two counts is the core's traffic.
+The reference's other costing knob, ``unroll_layers``, has no twin: it
+unrolls the ``lax.scan`` over layers so that XLA's cost analysis counts
+every layer, and the port's layers are a Python loop whose every layer
+is already counted.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ class Runtime:
     mamba_chunk: int = 512
     # decode
     seq_shard_decode: bool = False       # flash-decode partial-softmax combine
+    # costing (the dry-run): the train / prefill attention core is o := q
+    attn_core_identity: bool = False
 
     def data_axes(self) -> tuple:
         if self.mesh is None:

@@ -447,6 +447,28 @@ def test_launch_train_debug_mesh_2x4_on_gloo(tmp_path, capfd):
     assert not any((tmp_path / "mesh").iterdir())      # ckpt_every is 5
 
 
+def test_launch_train_debug_mesh_2x4_fp32_matches_one_device(tmp_path):
+    """The same launch.train run in fp32 (``tests/_torch_fp32_debug_mesh.py``
+    patches ``get_config`` at its top level, which the spawned ranks
+    import): all 4 losses of the 2x4 mesh within 1e-4 of the one-device
+    run's, the learning rate above 0 from step 1 on."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "losses.json"
+    subprocess.run([sys.executable,
+                    os.path.join(root, "tests", "_torch_fp32_debug_mesh.py"),
+                    str(out)], check=True, timeout=300, capture_output=True,
+                   env={**os.environ, "PYTHONPATH": os.path.join(root, "src")})
+    got = json.loads(out.read_text())
+    assert len(got["one"]) == len(got["mesh"]) == 4
+    for a, b in zip(got["one"], got["mesh"]):
+        assert abs(a - b) < 1e-4, (got["one"], got["mesh"])
+    assert len(set(got["one"])) == 4           # the steps moved the weights
+
+
 @pytest.mark.parametrize("world", [None, "8"])
 def test_production_raises_off_a_world_of_256(tmp_path, monkeypatch, world):
     if world is None:
