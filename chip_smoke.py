@@ -169,9 +169,23 @@ non-zero without its last line):
                single-device backends', each rank's device bytes within
                10% of device_memory_bytes(), the merge bytes a batch the
                closed form at 1M and 20k alike; placed QPS recorded beside
-               the single-device QPS.  Each rank sets the counters to 0
-               before and reads them after each serving round; the
-               ranks' launches are the path's.
+               the single-device QPS.  Then one leader episode on the
+               placed stream_sharded copy: rank 0 serves through a Leader
+               (repro_torch.dist.leader) and rank 1 replays its op stream:
+               the nprobe ladder swept on 64 queries, async-1M's tenants
+               resolved against that frontier, its burst of 768, then
+               2,048 mixed requests; 400 inserts after window 2 trip the
+               tail verdict and a BackgroundCompactor prepares and commits
+               while serving goes on; 200 deletes, the last window after
+               the swap.  Checks: rank 0's op log replayed on the
+               single-device copy gives every batch's ids and dists bit
+               for bit, exactly 256 admitted and 512 Overloaded, the
+               accounting invariant, both ranks at the same epoch (1) and
+               seqno, no deleted id served, the op stream's bytes the
+               closed form (a 256-byte header a record, B x d x 4 query
+               bytes a batch).  Each rank sets the counters to 0 before
+               and reads them after each serving round and the episode;
+               the ranks' launches are the path's.
 14. dryrun  -- ``python -m repro_torch.launch.dryrun`` in a subprocess
                (CPU and meta tensors, a fake process group of 256 / 512
                ranks) for glm4-9b x train_4k at both meshes and
@@ -194,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -1699,8 +1714,9 @@ ASYNC_1M = {"tenants": "gold:0.95:3:20,bronze:0.6:1", "max_batch": 64,
             "seed": 0}
 
 
-def phase_async(ds, ivf, frontier) -> dict:
-    """async-1M (see the docstring): returns the kernels' launches."""
+def phase_async(ds, ivf, frontier) -> tuple[dict, dict]:
+    """async-1M (see the docstring): returns the kernels' launches and each
+    tenant's QPS."""
     import asyncio
 
     from repro_torch.anns.datasets import recall_at_k
@@ -1825,7 +1841,7 @@ def phase_async(ds, ivf, frontier) -> dict:
           "launches": launches})
     for kname in ("distance", "topk", "qdist"):
         check(launches[kname] > 0, f"async: no {kname} launch")
-    return launches
+    return launches, {name: p["qps"] for name, p in per.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3231,6 +3247,18 @@ SHARD_MESH = {"queries": 2048, "batch": 64, "inserts": 1000, "deletes": 1000,
               "tail_cap": 1024, "n_small": 20_000}
 #: a rank's device bytes after placement, relative to device_memory_bytes()
 SHARD_MESH_HELD_TOL = 0.10
+#: the leader episode on the placed stream_sharded copy, after its checks
+#: above: rank 0 sweeps the nprobe ladder through a Leader on the first 64
+#: queries (one batch: the all-cells rung holds (64, nlist x pad) slots on
+#: each of two ranks sharing the card), resolves async-1M's tenants against
+#: that frontier and serves async-1M's burst, then 2,048 mixed requests in
+#: windows of max_queue; before window 2, 400 inserts push the tail (1,000
+#: of 1,000,000 live) past max_tail_frac and the tail verdict schedules a
+#: background compaction; 100 base and 100 tail ids are deleted before
+#: window 4; the last window is served after the swap
+SHARD_MESH_LEADER = {"sweep_queries": 64, "requests": 2048, "inserts": 400,
+                     "insert_at": 2, "deletes": 200, "delete_at": 4,
+                     "max_tail_frac": 0.0012, "seed": 12}
 
 
 def _mesh_params(backend) -> dict:
@@ -3270,6 +3298,223 @@ def _serve_batches(backend, q, params, batch: int):
         dists.append(r.dists)
     torch.cuda.synchronize()
     return torch.cat(ids), torch.cat(dists), time.perf_counter() - t0
+
+
+def _leader_episode(b, data, log_path: str) -> dict:
+    """Rank 0's half of the leader episode (``SHARD_MESH_LEADER``) over the
+    placed ``b``: everything goes through a recording Leader, whose op log
+    is written to ``log_path``."""
+    import asyncio
+
+    from repro_torch.anns.datasets import DATASET_SPECS, Dataset, recall_at_k
+    from repro_torch.anns.stream import BackgroundCompactor, exact_live_gt
+    from repro_torch.anns.tune import sweep_frontier
+    from repro_torch.dist import comm
+    from repro_torch.dist.leader import Leader
+    from repro_torch.serve import (AsyncServeTier, Overloaded,
+                                   ServeRejection, attach_drift_monitors,
+                                   parse_tenant_specs, resolve_tenants)
+
+    cfg, acfg = SHARD_MESH_LEADER, ASYNC_1M
+    q = data["queries"]
+    n = cfg["sweep_queries"]
+    out = {}
+    with comm.count_collectives() as cnt, Leader(b, record=True) as leader:
+        # the gt over the live set (on rank 0's host master, no record)
+        gt = exact_live_gt(leader, q, 10)
+        # a sweep reads queries and gt; the base's rows are the index's
+        view = Dataset(spec=DATASET_SPECS["sift-128-euclidean"],
+                       base=np.empty((b.n_live(), 0), np.float32),
+                       queries=q[:n], gt=gt[:n], k_gt=10)
+        t0 = time.perf_counter()
+        frontier = sweep_frontier(view, backends=(), targets=[leader], k=10,
+                                  repeats=1)
+        out["sweep_s"] = time.perf_counter() - t0
+        tenants = resolve_tenants(parse_tenant_specs(acfg["tenants"]),
+                                  target=leader, frontier=frontier)
+        attach_drift_monitors(tenants, max_tail_frac=cfg["max_tail_frac"])
+        tier = AsyncServeTier(leader, tenants, max_batch=acfg["max_batch"],
+                              max_queue=acfg["max_queue"])
+        compactor = BackgroundCompactor(leader)
+        tier.attach_compactor(compactor)
+        rows = np.random.default_rng(cfg["seed"]).permutation(len(q))
+        names = ["gold"] * acfg["mix"] + ["bronze"]
+        found = {n_: [] for n_ in tenants}
+        served = {n_: [] for n_ in tenants}
+        lat = {n_: [] for n_ in tenants}
+
+        async def episode():
+            burst, shed = [], 0
+            for i in range(acfg["burst"]):
+                try:
+                    burst.append(tier.submit(q[rows[i % len(rows)]],
+                                             names[i % len(names)]))
+                except Overloaded:
+                    shed += 1
+            out["admitted"], out["shed_overload"] = len(burst), shed
+            tier.start()
+            await asyncio.gather(*burst, return_exceptions=True)
+            windows = list(range(0, cfg["requests"], acfg["max_queue"]))
+            verdicts = []
+            t0 = time.perf_counter()
+            for w, lo in enumerate(windows):
+                if w == cfg["insert_at"]:
+                    leader.insert(data["more_inserts"], ids=data["more_ids"])
+                    for name in sorted(tenants):
+                        if found[name]:
+                            rec = recall_at_k(np.stack(found[name]),
+                                              gt[np.asarray(served[name])],
+                                              10)
+                            v = tier.batcher.observe_served(
+                                name, recall=rec,
+                                tail_fraction=leader.tail_fraction())
+                            verdicts.append([name, v.reason])
+                if w == cfg["delete_at"]:
+                    leader.delete(data["more_deletes"])
+                if w == len(windows) - 1:
+                    # the last window after the swap; the wait is not
+                    # serving time
+                    tj = time.perf_counter()
+                    compactor.join()
+                    out["join_wait_s"] = time.perf_counter() - tj
+                subs = []
+                for i in range(lo, min(lo + acfg["max_queue"],
+                                       cfg["requests"])):
+                    name = names[i % len(names)]
+                    qi = int(rows[i % len(rows)])
+                    subs.append((name, qi, tier.submit(q[qi], name)))
+                for name, qi, fut in subs:
+                    try:
+                        r = await fut
+                    except ServeRejection:
+                        continue
+                    found[name].append(r.ids)
+                    served[name].append(qi)
+                    lat[name].append(r.latency_ms)
+            out["wall_s"] = time.perf_counter() - t0
+            out["verdicts"] = verdicts
+            await tier.close(drain=True)
+
+        asyncio.run(episode())
+    with open(log_path, "wb") as f:
+        pickle.dump(leader.log, f)
+    tot = tier.telemetry.totals()
+    out.update(tallies=leader.tallies, runs=compactor.runs,
+               accounted=tot.accounted(), totals=tier.telemetry.snapshot()[
+                   "totals"],
+               op_stream_bytes=cnt["op-stream"]["bytes"],
+               merge_bytes=sum(cnt.get(op, {}).get("bytes", 0)
+                               for op in ("all-gather", "all-reduce")))
+    out["per_tenant"] = {
+        name: {"pick_ef": st.params.ef, "swept_recall@10": st.point.recall,
+               "served": len(found[name]),
+               "qps": len(found[name]) / (out["wall_s"]
+                                          - out["join_wait_s"]),
+               "served_recall@10": (recall_at_k(
+                   np.stack(found[name]), gt[np.asarray(served[name])], 10)
+                   if found[name] else float("nan")),
+               "p50_ms": float(np.percentile(lat[name], 50)),
+               "p99_ms": float(np.percentile(lat[name], 99))}
+        for name, st in tenants.items()}
+    return out
+
+
+def _follow_episode(b) -> dict:
+    """A follower's half of the leader episode: replay rank 0's records."""
+    from repro_torch.dist import comm
+    from repro_torch.dist.leader import follow
+    with comm.count_collectives() as cnt:
+        tallies = follow(b)
+    return {"tallies": tallies, "op_stream_bytes": cnt["op-stream"]["bytes"]}
+
+
+def _op_stream_closed_form(log: list, world: int, d: int) -> int:
+    """The op stream's bytes on each rank: a header a record (and the
+    stop's), the fp32 queries of each search and warm, an insert's fp32
+    vectors and int64 ids, a delete's int64 ids, and the stop's tally (a
+    rank's 4 int64 from every rank)."""
+    from repro_torch.dist.leader import HEADER_BYTES
+    total = (len(log) + 1) * HEADER_BYTES + world * 4 * 8
+    for e in log:
+        if e["op"] in ("search", "warm"):
+            total += e["arrays"][0].shape[0] * d * 4
+        elif e["op"] == "insert":
+            total += len(e["arrays"][0]) * (d * 4 + 8)
+        elif e["op"] == "delete":
+            total += len(e["arrays"][0]) * 8
+    return total
+
+
+def _check_leader_episode(ranks: list, log: list, twin, async_qps: dict,
+                          d: int) -> dict:
+    """The leader episode's checks, against ``twin`` (the single-device
+    stream_sharded in the episode's starting state), which replays the
+    log; returns the phase row's ``leader`` entry."""
+    from repro_torch.dist.leader import HEADER_BYTES, replay
+    lead, fol = ranks[0]["stream_sharded"]["leader"], \
+        ranks[1]["stream_sharded"]["leader"]
+    acfg = ASYNC_1M
+    t0 = time.perf_counter()
+    results = replay(log, twin)
+    replay_s = time.perf_counter() - t0
+    searches = [e for e in log if e["op"] == "search"]
+    bad = [i for i, (e, r) in enumerate(zip(searches, results))
+           if not (np.array_equal(e["ids"], r.ids.cpu().numpy())
+                   and np.array_equal(e["dists"], r.dists.cpu().numpy()))]
+    check(len(searches) == len(results) and not bad,
+          f"leader: {len(bad)} of {len(searches)} batches differ from the "
+          f"single-device replay (first {bad[:5]})")
+    check(lead["admitted"] == acfg["max_queue"]
+          and lead["shed_overload"] == acfg["burst"] - acfg["max_queue"],
+          f"leader burst: {lead['admitted']} admitted, "
+          f"{lead['shed_overload']} shed")
+    t = lead["totals"]
+    check(lead["accounted"], f"leader accounting: {t}")
+    check(lead["tallies"] == fol["tallies"]
+          and lead["tallies"][0] == lead["tallies"][1],
+          f"leader: ranks end at {lead['tallies']} / {fol['tallies']}")
+    epoch, seqno = lead["tallies"][0][2:]
+    check(epoch == 1 and lead["runs"] == 1
+          and (twin.epoch, twin.seqno) == (epoch, seqno),
+          f"leader: epoch {epoch}, {lead['runs']} compactions, replay at "
+          f"{(twin.epoch, twin.seqno)}")
+    dead, after = set(), 0
+    for e in log:
+        if e["op"] == "delete":
+            dead |= set(e["arrays"][0].tolist())
+        elif e["op"] == "search" and dead:
+            check(dead.isdisjoint(e["ids"].ravel().tolist()),
+                  "leader: a deleted id was served")
+            after += 1
+    ops = [e["op"] for e in log]
+    p, c = ops.index("prepare"), ops.index("commit")
+    want = _op_stream_closed_form(log, 2, d)
+    batch = {e["arrays"][0].shape[0] for e in log
+             if e["op"] in ("search", "warm")}
+    check(lead["op_stream_bytes"] == fol["op_stream_bytes"] == want
+          and batch == {acfg["max_batch"]},
+          f"leader op stream: {lead['op_stream_bytes']} / "
+          f"{fol['op_stream_bytes']} bytes, closed form {want}; batches "
+          f"{batch}")
+    return {"sweep_s": lead["sweep_s"],
+            "compaction_s": log[c]["t"] - log[p]["t"],
+            "searches_during_compaction": ops[p:c].count("search"),
+            "delete_in_journal": "delete" in ops[p:c],
+            "searches_after_deletes": after,
+            "replay_s": replay_s, "batches_bit_equal": len(searches),
+            "burst": {"admitted": lead["admitted"],
+                      "shed_overload": lead["shed_overload"]},
+            "totals": t, "verdicts": lead["verdicts"],
+            "epoch_seqno": [epoch, seqno], "records": lead["tallies"][0][0],
+            "op_stream_bytes": want,
+            "op_stream_bytes_per_batch": HEADER_BYTES + acfg["max_batch"] * d * 4,
+            "merge_bytes_per_search": lead["merge_bytes"] / (
+                ops.count("search") + ops.count("warm")),
+            "wall_s": lead["wall_s"], "join_wait_s": lead["join_wait_s"],
+            "per_tenant": {name: {**row, "qps_single": async_qps.get(name)}
+                           for name, row in lead["per_tenant"].items()},
+            "launches": {"rank0": lead["launches"],
+                         "rank1": fol["launches"]}}
 
 
 def _shard_mesh_rank(rank: int, store: str, tmp: str) -> None:
@@ -3323,6 +3568,14 @@ def _shard_mesh_rank(rank: int, store: str, tmp: str) -> None:
                               "m_shard": _mesh_width(b, params), "cap": cap}
                 arrays[f"{name}/{label}/ids"] = ids.cpu().numpy()
                 arrays[f"{name}/{label}/dists"] = dists.cpu().numpy()
+            if name == "stream_sharded":
+                zero_counts(counters)
+                row["leader"] = (
+                    _leader_episode(b, data, os.path.join(tmp, "leader.pkl"))
+                    if rank == 0 else _follow_episode(b))
+                counts = read_counts(counters)
+                row["leader"]["launches"] = counts
+                launches = {k: launches[k] + counts[k] for k in counts}
             res[name] = row
             del b
             torch.cuda.empty_cache()
@@ -3335,7 +3588,7 @@ def _shard_mesh_rank(rank: int, store: str, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_shard_mesh(ds, kept: dict) -> dict:
+def phase_shard_mesh(ds, kept: dict, async_qps: dict) -> dict:
     """The 1M sharded index (2 shards) saved under build/, then served by
     two ranks on the one card over Gloo with CUDA tensors, each holding
     one shard (``place_on_mesh``); the same for a stream_sharded copy
@@ -3343,8 +3596,14 @@ def phase_shard_mesh(ds, kept: dict) -> dict:
     ids and dists bit-equal to the single-device backends', each rank's
     device bytes within 10% of ``device_memory_bytes()``, the merge bytes
     a batch the closed form and those of a 20k index of the same variant;
-    records the placed QPS beside the single-device QPS.  Returns the
-    ranks' kernel launches, summed."""
+    records the placed QPS beside the single-device QPS.  Then the leader
+    episode (``SHARD_MESH_LEADER``) on the placed stream_sharded copy:
+    rank 0's op log replayed here on the single-device copy, every batch
+    bit-equal; the burst's admissions, the accounting, both ranks' epoch
+    and seqno, no deleted id served, the op stream's bytes the closed
+    form; placed QPS a tenant beside ``async_qps`` (phase_async's, one
+    device), compaction and sweep seconds.  Returns the ranks' kernel
+    launches, summed."""
     import dataclasses
     import shutil
     import tempfile
@@ -3367,8 +3626,19 @@ def phase_shard_mesh(ds, kept: dict) -> dict:
                + np.float32(0.01))
         ins_ids = np.arange(10 ** 7, 10 ** 7 + cfg["inserts"], dtype=np.int32)
         dels = rng.choice(sharded.index.n, cfg["deletes"], replace=False)
+        lcfg = SHARD_MESH_LEADER
+        more_ins = (ds.base[rng.integers(0, len(ds.base), lcfg["inserts"])]
+                    + np.float32(0.02))
+        more_ids = np.arange(2 * 10 ** 7, 2 * 10 ** 7 + lcfg["inserts"],
+                             dtype=np.int32)
+        alive = np.setdiff1d(np.arange(sharded.index.n), dels)
+        more_dels = np.concatenate([
+            rng.choice(alive, lcfg["deletes"] // 2, replace=False),
+            rng.choice(np.concatenate([ins_ids, more_ids]),
+                       lcfg["deletes"] // 2, replace=False)])
         np.savez(os.path.join(tmp, "inputs.npz"), queries=q, inserts=ins,
-                 insert_ids=ins_ids, deletes=dels)
+                 insert_ids=ins_ids, deletes=dels, more_inserts=more_ins, more_ids=more_ids,
+                 more_deletes=more_dels)
 
         t0 = time.perf_counter()
         ckpt.save_index(os.path.join(tmp, "sharded"), sharded)
@@ -3394,8 +3664,6 @@ def phase_shard_mesh(ds, kept: dict) -> dict:
                 ids, dists, secs = _serve_batches(b, q, params, cfg["batch"])
                 single[name, label] = (ids.cpu().numpy(), dists.cpu().numpy(),
                                        len(q) / secs)
-        del stream
-        torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         with _stdout_to_stderr():
@@ -3446,6 +3714,13 @@ def phase_shard_mesh(ds, kept: dict) -> dict:
                       f"shard_mesh: ranks hold {held} bytes, one shard's "
                       f"layout is {dev_b}")
             row[name] = out
+        # the leader episode, replayed on the single-device copy
+        with open(os.path.join(tmp, "leader.pkl"), "rb") as f:
+            log = pickle.load(f)
+        row["leader"] = _check_leader_episode(ranks, log, stream, async_qps,
+                                              ds.base.shape[1])
+        del stream
+        torch.cuda.empty_cache()
         launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
                     for k in ranks[0]["launches"]}
         row["launches"] = launches
@@ -3565,8 +3840,8 @@ def main() -> None:
                                     n_requests=2048)
     launches["tune"], frontier = phase_tune(ds, kept)
     launches["stream"], stream_vs_plain = phase_stream(ds, kept)
-    launches["async"] = phase_async(ds, kept["ivf"], frontier)
-    launches["shard_mesh"] = phase_shard_mesh(ds, kept)
+    launches["async"], async_qps = phase_async(ds, kept["ivf"], frontier)
+    launches["shard_mesh"] = phase_shard_mesh(ds, kept, async_qps)
     del ds, kept, frontier
     torch.cuda.empty_cache()
     phase_ref20k()

@@ -52,11 +52,13 @@ leaves and packed tombstone bitmaps; ``to_delta_dict`` /
 
 Placement across processes (``StreamingShardedBackend.place_on_mesh``,
 one rank a shard) is SPMD: every rank applies the same inserts, deletes
-and compactions (the host masters stay whole on every rank, and one
-history compacts to the same bytes), while each rank's device view holds
-only its own shard's live mask and tail.  A compaction gathers the base
-slices from every rank, re-shards and re-places; it runs inline, on every
-rank at once (the background compactor refuses a placed index).
+and compactions (the host masters, the whole base among them, stay whole
+on every rank, and one history compacts to the same bytes), while each
+rank's device view holds only its own shard's live mask and tail.  A
+compaction re-shards and re-places on every rank without a collective, so
+its build may run on a background thread beside serving; the leader /
+follower stream of :mod:`repro_torch.dist.leader` puts its snapshot and
+its swap at one point of every rank's op stream.
 """
 from __future__ import annotations
 
@@ -80,7 +82,6 @@ from repro_torch.anns.stream.search import (placed_stream_search,
                                             stream_ivf_search,
                                             stream_sharded_search)
 from repro_torch.device import as_f32
-from repro_torch.dist import comm
 
 DEFAULT_TAIL_CAP = 256
 
@@ -162,6 +163,9 @@ class PreparedCompaction:
     seqno: int
     empty: bool
     attrs: object = None
+    #: the new layout's (N, d) fp32 rows on the host, cell-major, for a
+    #: placed index (its device holds one shard: see ``_global_base``)
+    base: object = None
 
 
 def _pack_mask(mask: np.ndarray) -> np.ndarray:
@@ -410,18 +414,30 @@ class _StreamCommon:
         split, layout, id remap, re-shard) that a background worker runs
         while serving continues.  Mutations that land meanwhile are
         journaled and replayed at commit."""
+        return self.build_compaction(self.snapshot_compaction())
+
+    def snapshot_compaction(self) -> tuple:
+        """The first half of :meth:`prepare_compaction`: under the lock,
+        the survivors and the fence (seqno, epoch), and the journal opened.
+        A leader / follower stream takes the snapshot at one point of the
+        op stream on every rank (:mod:`repro_torch.dist.leader`)."""
         assert self.index is not None, "build() first"
         with self._lock:
             if self._compacting:
                 raise CompactionInFlight(
                     "a prepared compaction is already pending — commit "
                     "or abandon it before preparing another")
-            index = self.index
             vecs, oids = self.live_vectors()
-            acols = self.live_attributes()
-            fence_seqno, fence_epoch = self.seqno, self.epoch
+            snap = (self.index, vecs, oids, self.live_attributes(),
+                    self.seqno, self.epoch)
             self._compacting = True
             self._mutation_log = []
+        return snap
+
+    def build_compaction(self, snap: tuple) -> PreparedCompaction:
+        """The second half of :meth:`prepare_compaction`: the replacement
+        layout from a :meth:`snapshot_compaction`, off the lock."""
+        index, vecs, oids, acols, fence_seqno, fence_epoch = snap
         try:
             centroids = _host(index.centroids)
             empty = len(vecs) == 0
@@ -447,9 +463,12 @@ class _StreamCommon:
             new_attrs = (None if acols is None else
                          {c: np.ascontiguousarray(a_[perm], np.int32)
                           for c, a_ in acols.items()})
+            new_index = self._finalize_layout(inner, index)
             return PreparedCompaction(
-                index=self._finalize_layout(inner), epoch=fence_epoch,
-                seqno=fence_seqno, empty=empty, attrs=new_attrs)
+                index=new_index, epoch=fence_epoch, seqno=fence_seqno,
+                empty=empty, attrs=new_attrs,
+                base=(None if getattr(new_index, "mesh", None) is None
+                      else vecs[perm]))
         except BaseException:
             with self._lock:
                 self._compacting = False
@@ -476,6 +495,7 @@ class _StreamCommon:
             log, self._mutation_log = self._mutation_log, []
             self._compacting = False
             self.index = prepared.index
+            self._base_host = prepared.base
             self.attributes = prepared.attrs
             self._clear_filter_caches()   # masks describe the old layout
             self._live = np.ones(self.index.n, bool)
@@ -674,7 +694,7 @@ class StreamingIvfBackend(_StreamCommon, IvfBackend):
         self._init_mutable()
         return out
 
-    def _finalize_layout(self, inner):
+    def _finalize_layout(self, inner, old):
         return inner
 
     def _place_in_tail(self, vecs: np.ndarray, ids: np.ndarray,
@@ -777,10 +797,13 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
 
     def _global_base(self):
         idx = self.index
+        if idx.mesh is not None:
+            # a placed index holds one shard on the device; every rank
+            # keeps the whole base on the host, so neither a snapshot nor
+            # live_vectors() makes a collective
+            return self._base_host, _host(idx.ids)
         vb = np.asarray(idx.vec_bounds)
-        # a placed index holds one shard: gather the others' (a collective)
-        bf = _host(idx.base_f if idx.mesh is None
-                   else comm.all_gather(idx.base_f, idx.mesh, "shard"))
+        bf = _host(idx.base_f)
         parts = [bf[j, : int(vb[j + 1] - vb[j])]
                  for j in range(idx.n_shards)]
         return np.concatenate(parts, axis=0), _host(idx.ids)
@@ -790,17 +813,18 @@ class StreamingShardedBackend(_StreamCommon, ShardedBackend):
         self._init_mutable()
         return out
 
-    def _finalize_layout(self, inner):
-        """The re-shard (and re-placement) happens in *prepare*, off the
-        serving path."""
-        out = shard_ivf(inner, self.index.n_shards)
-        mesh = self.index.mesh
-        return out if mesh is None else place_on_mesh(out, mesh)
+    def _finalize_layout(self, inner, old):
+        """The re-shard (and re-placement, on ``old``'s mesh) happens in
+        *prepare*, off the serving path."""
+        out = shard_ivf(inner, old.n_shards)
+        return out if old.mesh is None else place_on_mesh(out, old.mesh)
 
     def place_on_mesh(self, mesh) -> None:
         """:meth:`ShardedBackend.place_on_mesh`, then a fresh view holding
-        this rank's live mask and tail alone (see the module docstring)."""
+        this rank's live mask and tail alone (see the module docstring);
+        the whole base stays on the host, as the other masters do."""
         with self._lock:
+            self._base_host = self._global_base()[0]
             ShardedBackend.place_on_mesh(self, mesh)
             self._sync()
 

@@ -71,24 +71,25 @@ def nice_current_thread(level: int = 19) -> bool:
 class BackgroundCompactor:
     """Schedule fenced background compactions of one streaming backend.
 
-    ``monitors`` — :class:`~repro_torch.anns.tune.DriftMonitor` instances to
-    suppress (``compaction_pending``) while a run is in flight and to
-    rebase after the swap.  ``warm`` — ``None``, a ``(queries, params)``
-    pair, a list of such pairs, or a zero-arg callable returning either
-    (evaluated at swap time, so it sees post-retune params); each pair
-    is searched once against the prepared layout before the swap.
-    ``rebase`` — rebase monitors on their current operating point after
-    a successful swap (default True).  ``nice`` — worker thread
-    niceness (``None`` disables; default 19, i.e. yield to serving).
+    ``backend`` — a streaming backend, or a
+    :class:`~repro_torch.dist.leader.Leader` over an index placed across
+    processes: the leader puts the prepare's snapshot, each warm search
+    and the commit into the op stream at the point this worker reaches
+    them, and every follower replays them there, so all ranks swap between
+    the same two searches.  ``monitors`` —
+    :class:`~repro_torch.anns.tune.DriftMonitor` instances to suppress
+    (``compaction_pending``) while a run is in flight and to rebase after
+    the swap.  ``warm`` — ``None``, a ``(queries, params)`` pair, a list of
+    such pairs, or a zero-arg callable returning either (evaluated at swap
+    time, so it sees post-retune params); each pair is searched once
+    against the prepared layout before the swap.  ``rebase`` — rebase
+    monitors on their current operating point after a successful swap
+    (default True).  ``nice`` — worker thread niceness (``None`` disables;
+    default 19, i.e. yield to serving).
     """
 
     def __init__(self, backend, *, monitors=(), warm=None,
                  rebase: bool = True, nice: int | None = 19):
-        if getattr(getattr(backend, "index", None), "mesh", None) is not None:
-            raise ValueError(
-                "a placed index compacts on every rank at once, and this "
-                "worker swaps on its own timing; a leader / follower loop "
-                "for timing-driven serving loops is open work (ROADMAP §1)")
         self.backend = backend
         self.monitors = list(monitors)
         self.warm = warm

@@ -120,6 +120,16 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def broadcast(x: torch.Tensor, group, *, op: str,
+              src: int = 0) -> torch.Tensor:
+    """``x`` from rank ``src`` on every rank of ``group``, in place; counted
+    under ``op`` (the op stream of :mod:`repro_torch.dist.leader` counts
+    its records as ``"op-stream"``, apart from the search's own traffic)."""
+    dist.broadcast(x, src=src, group=group)
+    _record(op, x)
+    return x
+
+
 def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     """``x`` summed over ``axes``; this rank's slice of ``dim``."""
     n = axis_size(mesh, axes)

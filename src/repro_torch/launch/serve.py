@@ -15,6 +15,20 @@ Gloo on ``cpu``) a ``sharded`` / ``stream_sharded`` index of one shard a
 rank is placed across the ranks instead, and only rank 0 prints::
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --backend sharded --n-shards 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --backend stream_sharded --n-shards 2 --tune --async \
+        --tenants gold:0.95:3:20,bronze:0.6:1
+
+Every rank loads or builds the index and places its shard; then rank 0
+serves through a :class:`~repro_torch.dist.leader.Leader`, which puts
+each search, mutation and compaction step into an op stream, and every
+other rank replays that stream (:func:`~repro_torch.dist.leader.follow`).
+So every serving mode runs on a placed index: the sweep, the async tier,
+the SLO server with its drift monitor and background compactor,
+``--stream-demo`` and ``--filter-demo``; batches, SLO picks and
+compaction points are rank 0's, from its own timings.  A failure on rank
+0 aborts every rank with its message; collectives give up after
+``SERVE_TIMEOUT_S``.
 
 Built indexes ship without a rebuild: ``--save-index DIR`` checkpoints
 the built state, ``--load-index DIR`` restores it (the backend comes from
@@ -43,12 +57,6 @@ the default deadline.
 ``--filter EXPR`` serves every request under an attribute predicate;
 ``--filter-demo`` runs the scripted unfiltered-vs-filtered episode at
 three selectivities (greppable ``filter:`` lines).
-
-Under a process group every rank makes the same search calls, so loops
-whose batches or picks come from timing raise there: ``--async``, the
-background compactor, and an SLO pick from a sweep of this run (sweep
-with ``--save-frontier``, then serve with ``--load-frontier``).  A
-leader / follower loop for them is open work (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -698,16 +706,6 @@ def main(argv=None):
                  "(tune.sweep_frontier filters=...)")
 
     grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if grouped:
-        timed = ("--async" if args.async_tier else
-                 "--tune with an SLO pick" if args.tune and (
-                     args.target_recall is not None
-                     or args.tenants is not None) else None)
-        if timed:
-            ap.error(f"{timed} forms its batches or picks from timing, which "
-                     f"the ranks of a process group would not agree on; a "
-                     f"leader / follower loop for timing-driven serving loops is "
-                     f"open work (ROADMAP §1)")
     quiet = grouped and int(os.environ.get("RANK", "0")) != 0
     with (contextlib.redirect_stdout(io.StringIO()) if quiet
           else contextlib.nullcontext()):
@@ -726,26 +724,28 @@ def _serve(args, ap, grouped: bool):
         import torch
         import torch.distributed as dist
 
+        from repro_torch.dist.leader import SERVE_TIMEOUT_S
         from repro_torch.launch.mesh import init_distributed
-        init_distributed(device)
+        init_distributed(device, timeout_s=SERVE_TIMEOUT_S)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         try:
-            return _serve_on(args, ap, device, grouped)
+            return _serve_on(args, ap, device)
         finally:
             dist.destroy_process_group()
-    return _serve_on(args, ap, device, grouped)
+    return _serve_on(args, ap, device)
 
 
-def _serve_on(args, ap, device, grouped: bool):
+def _serve_on(args, ap, device):
+    """Every rank: the dataset, the index (built or loaded), its placement
+    and attribute columns; then :func:`_serve_target` on one device, or
+    under a placed index on rank 0 through a
+    :class:`~repro_torch.dist.leader.Leader` while the others follow."""
     import dataclasses
 
-    import numpy as np
     from repro_torch import ckpt
-    from repro_torch.anns import SearchParams, make_dataset, registry
-    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.anns import make_dataset, registry
     from repro_torch.anns.engine import GLASS_BASELINE, VariantConfig
-    from repro_torch.runtime.server import AnnsServer
 
     ds = make_dataset(args.dataset, n_base=args.n_base, n_query=args.n_query,
                       device=device)
@@ -803,6 +803,28 @@ def _serve_on(args, ap, device, grouped: bool):
         # a restored index may carry its columns (attr/<col> leaves)
         target.set_attributes(ds.attrs)
         print(f"attribute columns attached: {sorted(ds.attrs)}")
+    if getattr(getattr(target, "index", None), "mesh", None) is None:
+        return _serve_target(args, ap, target, ds)
+    import torch.distributed as dist
+
+    from repro_torch.dist.leader import Leader, follow
+    if dist.get_rank() != 0:
+        follow(target)
+        return None
+    with Leader(target) as leader:
+        return _serve_target(args, ap, leader, ds)
+
+
+def _serve_target(args, ap, target, ds):
+    """Serve ``target`` in the mode the flags pick; returns its result."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import ckpt
+    from repro_torch.anns import SearchParams
+    from repro_torch.anns.datasets import recall_at_k
+    from repro_torch.runtime.server import AnnsServer
+
     if args.filter_demo:
         return _run_filter_demo(target, ds, args)
 
@@ -880,12 +902,6 @@ def _serve_on(args, ap, device, grouped: bool):
             print(f"drift monitor attached (margin={margin:.3f}, "
                   f"max_tail_frac={args.max_tail_frac})")
             if supports_mutation(target):
-                if grouped:
-                    ap.error("the background compactor swaps layouts on its "
-                             "own timing, which the ranks of a process "
-                             "group would not agree on; a leader / follower "
-                             "loop for timing-driven serving loops is open work "
-                             "(ROADMAP §1)")
                 from repro_torch.anns.stream import BackgroundCompactor
                 server.attach_compactor(BackgroundCompactor(target))
                 print("background compactor attached (tail verdicts "

@@ -135,11 +135,7 @@ def placed_stream_rank(rank, state: dict, variant: dict, queries,
         b.compact()
     serve("compact")
     from repro_torch.anns.stream import BackgroundCompactor
-    try:
-        BackgroundCompactor(placed)
-        res["compactor_refused"] = False
-    except ValueError as e:
-        res["compactor_refused"] = "ROADMAP" in str(e)
+    res["compactor_accepted"] = BackgroundCompactor(placed).backend is placed
     # one history compacts to the same layout, placed or not
     j = placed.index.shard
     res["compact/layout_equal"] = (
