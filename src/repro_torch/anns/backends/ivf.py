@@ -35,6 +35,7 @@ from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.distance.ops import pairwise_distance
 from repro_torch.kernels.qdist.ops import quantized_cell_scan
 from repro_torch.kernels.topk.ops import topk_smallest
+from repro_torch.trace import span
 
 BIG = search_lib.BIG
 
@@ -99,30 +100,36 @@ def _ivf_search(idx: IvfIndex, q32: torch.Tensor, fmask=None, *,
     the rerank (the validity mask travels with the shortlist).  ``fmask``
     ((n,) bool in cell-major position space, or None) is the filter's
     bitmask, ANDed into the same validity; slots left without a matching
-    vector come back as id -1 (dist BIG).
+    vector come back as id -1 (dist BIG).  Under a profiler the four
+    stages are the spans ``rt.ivf.coarse``, ``rt.ivf.scan``,
+    ``rt.ivf.mcut`` and ``rt.ivf.rerank``.
     """
     B = q32.shape[0]
-    dc = pairwise_distance(q32, idx.centroids, metric=metric)      # (B, C)
-    _, probe = topk_smallest(dc, nprobe)                           # (B, nprobe)
+    with span("ivf.coarse"):
+        dc = pairwise_distance(q32, idx.centroids, metric=metric)  # (B, C)
+        _, probe = topk_smallest(dc, nprobe)                   # (B, nprobe)
 
-    cand = idx.cells[probe.long()].reshape(B, -1)                  # (B, nprobe*pad)
-    valid = cand >= 0
-    pos = torch.where(valid, cand, 0).long()
-    if fmask is not None:
-        valid = valid & fmask[pos]
-    if quantized:
-        d = quantized_cell_scan(q32, idx.base_q, idx.scales, idx.cells, probe,
-                                metric=metric)
-    else:
-        d = search_lib._qdist(q32, idx.base[pos], metric)
-    d = torch.where(valid, d, BIG)
+    with span("ivf.scan"):
+        cand = idx.cells[probe.long()].reshape(B, -1)    # (B, nprobe*pad)
+        valid = cand >= 0
+        pos = torch.where(valid, cand, 0).long()
+        if fmask is not None:
+            valid = valid & fmask[pos]
+        if quantized:
+            d = quantized_cell_scan(q32, idx.base_q, idx.scales, idx.cells,
+                                    probe, metric=metric)
+        else:
+            d = search_lib._qdist(q32, idx.base[pos], metric)
+        d = torch.where(valid, d, BIG)
 
-    _, keep = search_lib.smallest(d, m)
-    short = pos.gather(1, keep)                                    # (B, m)
-    short_valid = valid.gather(1, keep)
-    out_pos, out_d = fp32_rerank(idx.base, q32, short, k=k, metric=metric,
-                                 valid=short_valid)
-    out_ids = torch.where(out_d < BIG, idx.ids[out_pos], -1)
+    with span("ivf.mcut"):
+        _, keep = search_lib.smallest(d, m)
+        short = pos.gather(1, keep)                            # (B, m)
+        short_valid = valid.gather(1, keep)
+    with span("ivf.rerank"):
+        out_pos, out_d = fp32_rerank(idx.base, q32, short, k=k,
+                                     metric=metric, valid=short_valid)
+        out_ids = torch.where(out_d < BIG, idx.ids[out_pos], -1)
     return out_ids, out_d, valid.sum()
 
 

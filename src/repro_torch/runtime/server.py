@@ -27,6 +27,7 @@ import torch
 from repro_torch.anns.api import (EF_LADDER, SearchParams, round_ef,
                                   snap_down_to_ladder)
 from repro_torch.anns.engine import Engine
+from repro_torch.trace import span
 
 
 @dataclass
@@ -127,21 +128,28 @@ def execute_search_batch(search_fn, queries: np.ndarray,
 
     Returns ``(ids, dists, compute_s)`` with the pad rows already sliced
     off on the host — ``compute_s`` is the wall-clock of the search itself.
+    Under a profiler the call is the span ``rt.serve.execute`` (padding is
+    its own time), around the search's spans, ``rt.serve.sync`` (the host
+    waiting on the card) and ``rt.serve.copy_out`` (the copies to the
+    host and the slices).
     """
-    b, d = queries.shape
-    if b > max_batch:
-        raise ValueError(f"batch of {b} exceeds max_batch={max_batch}")
-    padded = queries.astype(np.float32, copy=False)
-    if b < max_batch:
-        padded = np.concatenate(
-            [padded, np.zeros((max_batch - b, d), np.float32)], axis=0)
-    t0 = time.perf_counter()
-    res = search_fn(padded, params)
-    if res.ids.is_cuda:
-        torch.cuda.synchronize(res.ids.device)
-    compute_s = time.perf_counter() - t0
-    return (res.ids.cpu().numpy()[:b], res.dists.cpu().numpy()[:b],
-            compute_s)
+    with span("serve.execute"):
+        b, d = queries.shape
+        if b > max_batch:
+            raise ValueError(f"batch of {b} exceeds max_batch={max_batch}")
+        padded = queries.astype(np.float32, copy=False)
+        if b < max_batch:
+            padded = np.concatenate(
+                [padded, np.zeros((max_batch - b, d), np.float32)], axis=0)
+        t0 = time.perf_counter()
+        res = search_fn(padded, params)
+        if res.ids.is_cuda:
+            with span("serve.sync"):
+                torch.cuda.synchronize(res.ids.device)
+        compute_s = time.perf_counter() - t0
+        with span("serve.copy_out"):
+            return (res.ids.cpu().numpy()[:b], res.dists.cpu().numpy()[:b],
+                    compute_s)
 
 
 class AnnsServer:

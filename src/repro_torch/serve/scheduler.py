@@ -38,6 +38,7 @@ from repro_torch.serve.queue import (AdmissionQueue, DeadlineExceeded,
                                      Overloaded, ServeRequest, ServeResponse,
                                      ServerClosed, Ticket)
 from repro_torch.serve.telemetry import ServeTelemetry
+from repro_torch.trace import span
 
 
 class ContinuousBatcher:
@@ -79,39 +80,42 @@ class ContinuousBatcher:
         :class:`~repro_torch.serve.queue.Overloaded` /
         :class:`~repro_torch.serve.queue.ServerClosed` at the door; shape and
         dtype problems fail fast here too — a malformed query must
-        never reach ``np.stack`` inside a batch."""
-        state = self.tenants.get(tenant)
-        if state is None:
-            raise KeyError(
-                f"unknown tenant {tenant!r}; serving "
-                f"{sorted(self.tenants)}")
-        q = validate_query(query, self._dim)
-        if deadline_ms is None:
-            deadline_ms = state.spec.deadline_ms
-        now = self.clock()
-        req = ServeRequest(
-            tenant=tenant, query=q,
-            k=int(k) if k is not None else state.params.k,
-            group=state.group_key(), ticket=Ticket(on_done),
-            t_submit=now,
-            deadline=None if deadline_ms is None else now + deadline_ms / 1e3)
-        try:
-            self.queue.admit(req)
-        except (Overloaded, ServerClosed):
-            # both are door rejections (never queued): they land in the
-            # shed_overload counter, keeping shed_closed strictly "was
-            # admitted, then aborted by a no-drain shutdown" so the
-            # accounting invariant admitted == served + shed_deadline +
-            # shed_closed stays exact
-            self.telemetry.record_shed(tenant, "overload")
-            raise
-        # an idle tenant re-arriving starts at current virtual time, not
-        # at the stale pass it parked on
-        if state.pass_value < self._vtime:
-            state.pass_value = self._vtime
-        self.telemetry.record_admitted(tenant)
-        self.telemetry.gauge_depth(self.queue.depth)
-        return req.ticket
+        never reach ``np.stack`` inside a batch.  Under a profiler the
+        whole admission is the span ``rt.serve.admit``."""
+        with span("serve.admit"):
+            state = self.tenants.get(tenant)
+            if state is None:
+                raise KeyError(
+                    f"unknown tenant {tenant!r}; serving "
+                    f"{sorted(self.tenants)}")
+            q = validate_query(query, self._dim)
+            if deadline_ms is None:
+                deadline_ms = state.spec.deadline_ms
+            now = self.clock()
+            req = ServeRequest(
+                tenant=tenant, query=q,
+                k=int(k) if k is not None else state.params.k,
+                group=state.group_key(), ticket=Ticket(on_done),
+                t_submit=now,
+                deadline=(None if deadline_ms is None
+                          else now + deadline_ms / 1e3))
+            try:
+                self.queue.admit(req)
+            except (Overloaded, ServerClosed):
+                # both are door rejections (never queued): they land in
+                # the shed_overload counter, keeping shed_closed strictly
+                # "was admitted, then aborted by a no-drain shutdown" so
+                # the accounting invariant admitted == served +
+                # shed_deadline + shed_closed stays exact
+                self.telemetry.record_shed(tenant, "overload")
+                raise
+            # an idle tenant re-arriving starts at current virtual time,
+            # not at the stale pass it parked on
+            if state.pass_value < self._vtime:
+                state.pass_value = self._vtime
+            self.telemetry.record_admitted(tenant)
+            self.telemetry.gauge_depth(self.queue.depth)
+            return req.ticket
 
     # -- serving ------------------------------------------------------
 
@@ -145,51 +149,62 @@ class ContinuousBatcher:
     def step(self) -> int:
         """Shed expired requests, then form and execute one batch from
         the scheduled tenant's group.  Returns requests served (0 when
-        the queue held nothing live)."""
-        self._shed_expired()
-        state = self._pick_tenant()
-        if state is None:
-            return 0
-        batch = self.queue.pop_batch(state.group_key(), self.max_batch)
-        if not batch:
-            return 0
-        t_formed = self.clock()
-        queries = np.stack([r.query for r in batch])
-        kmax = max(r.k for r in batch)
-        k_batch = batch_k_policy(state.params.k, kmax,
-                                 index_size(self.target))
-        params = (state.params if k_batch == state.params.k
-                  else state.params.replace(k=k_batch))
-        try:
-            ids, dists, compute_s = execute_search_batch(
-                self._search, queries, params, max_batch=self.max_batch)
-        except BaseException as e:
-            # a failing batch must not strand its requests: the tickets
-            # were already popped, so resolve them with the error before
-            # propagating it to whoever drives the stepper
-            for r in batch:
-                self.telemetry.record_shed(r.tenant, "closed")
-                r.ticket.reject(e)
-            raise
-        t_done = self.clock()
-        for i, r in enumerate(batch):
-            kr = min(r.k, ids.shape[1])
-            queue_wait_ms = (t_formed - r.t_submit) * 1e3
-            total_ms = (t_done - r.t_submit) * 1e3
-            resp = ServeResponse(
-                ids=ids[i, :kr], dists=dists[i, :kr], tenant=r.tenant,
-                latency_ms=total_ms, queue_wait_ms=queue_wait_ms,
-                compute_ms=compute_s * 1e3)
-            self.telemetry.record_served(
-                r.tenant, queue_wait_ms=queue_wait_ms,
-                compute_ms=compute_s * 1e3, total_ms=total_ms)
-            self.tenants[r.tenant].advance()
-            r.ticket.resolve(resp)
-        self._vtime = max(self._vtime,
-                          *(t.pass_value for t in self.tenants.values()))
-        self.telemetry.record_batch()
-        self.telemetry.gauge_depth(self.queue.depth)
-        return len(batch)
+        the queue held nothing live).
+
+        Under a profiler the step is the span ``rt.serve.step`` around
+        ``rt.serve.form`` (shedding, scheduling, the stacked batch, its
+        ``k``), ``rt.serve.execute`` and ``rt.serve.resolve`` (responses,
+        telemetry, each tenant's pass, the tickets: a caller's
+        ``on_done`` runs inside it)."""
+        with span("serve.step"):
+            with span("serve.form"):
+                self._shed_expired()
+                state = self._pick_tenant()
+                if state is None:
+                    return 0
+                batch = self.queue.pop_batch(state.group_key(),
+                                             self.max_batch)
+                if not batch:
+                    return 0
+                t_formed = self.clock()
+                queries = np.stack([r.query for r in batch])
+                kmax = max(r.k for r in batch)
+                k_batch = batch_k_policy(state.params.k, kmax,
+                                         index_size(self.target))
+                params = (state.params if k_batch == state.params.k
+                          else state.params.replace(k=k_batch))
+            try:
+                ids, dists, compute_s = execute_search_batch(
+                    self._search, queries, params, max_batch=self.max_batch)
+            except BaseException as e:
+                # a failing batch must not strand its requests: the
+                # tickets were already popped, so resolve them with the
+                # error before propagating it to whoever drives the stepper
+                for r in batch:
+                    self.telemetry.record_shed(r.tenant, "closed")
+                    r.ticket.reject(e)
+                raise
+            t_done = self.clock()
+            with span("serve.resolve"):
+                for i, r in enumerate(batch):
+                    kr = min(r.k, ids.shape[1])
+                    queue_wait_ms = (t_formed - r.t_submit) * 1e3
+                    total_ms = (t_done - r.t_submit) * 1e3
+                    resp = ServeResponse(
+                        ids=ids[i, :kr], dists=dists[i, :kr],
+                        tenant=r.tenant, latency_ms=total_ms,
+                        queue_wait_ms=queue_wait_ms,
+                        compute_ms=compute_s * 1e3)
+                    self.telemetry.record_served(
+                        r.tenant, queue_wait_ms=queue_wait_ms,
+                        compute_ms=compute_s * 1e3, total_ms=total_ms)
+                    self.tenants[r.tenant].advance()
+                    r.ticket.resolve(resp)
+            self._vtime = max(self._vtime,
+                              *(t.pass_value for t in self.tenants.values()))
+            self.telemetry.record_batch()
+            self.telemetry.gauge_depth(self.queue.depth)
+            return len(batch)
 
     def drain(self) -> int:
         """Serve until the queue is empty; returns total served.

@@ -53,7 +53,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.dist", "repro_torch.dist.sharding",
             "repro_torch.dist.comm", "repro_torch.dist.seq_decode",
             "repro_torch.dist.fsdp", "repro_torch.dist.leader",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.trace"} <= set(mods)
     # the H100 machine has neither msgpack nor zstandard
     code = (
         "import sys, importlib\n"
