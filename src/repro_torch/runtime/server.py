@@ -88,8 +88,12 @@ def validate_query(query, dim: int | None = None) -> np.ndarray:
     """Fail fast on a malformed query at submit time.
 
     Accepted: a 1-D numeric ``(d,)`` vector whose ``d`` matches the index
-    dimensionality (when an index is built).
+    dimensionality (when an index is built).  A float32 ``(d,)`` ndarray
+    of the right ``d`` needs no conversion and is returned as it is.
     """
+    if (type(query) is np.ndarray and query.dtype == np.float32
+            and query.ndim == 1 and (dim is None or query.shape[0] == dim)):
+        return query
     q = np.asarray(query)
     if q.dtype == object or not np.issubdtype(q.dtype, np.number):
         raise TypeError(

@@ -146,6 +146,8 @@ class AdmissionQueue:
         self._groups: dict[SearchParams, deque] = {}
         self._by_tenant: dict[str, int] = {}
         self._depth = 0
+        #: queued requests that carry a deadline: none, no expiry walk
+        self._deadlined = 0
         self._closed = False
 
     @property
@@ -172,21 +174,36 @@ class AdmissionQueue:
                     f"{self.bound}); request for tenant {req.tenant!r} "
                     f"shed — back off and retry", tenant=req.tenant,
                     depth=self._depth, bound=self.bound)
-            self._groups.setdefault(req.group, deque()).append(req)
+            dq = self._groups.get(req.group)
+            if dq is None:
+                dq = self._groups[req.group] = deque()
+            dq.append(req)
             self._by_tenant[req.tenant] = \
                 self._by_tenant.get(req.tenant, 0) + 1
             self._depth += 1
+            if req.deadline is not None:
+                self._deadlined += 1
 
     def _remove_accounting(self, req: ServeRequest) -> None:
         self._depth -= 1
         self._by_tenant[req.tenant] -= 1
+        if req.deadline is not None:
+            self._deadlined -= 1
+
+    @property
+    def deadlined(self) -> int:
+        """Queued requests that carry a deadline."""
+        return self._deadlined
 
     def shed_expired(self, now: float) -> list:
         """Remove (and return) every queued request whose deadline has
         passed — the caller rejects their tickets with
-        :class:`DeadlineExceeded`, so a shed is always typed."""
+        :class:`DeadlineExceeded`, so a shed is always typed.  With no
+        deadlined request queued nothing can expire: no walk."""
         out = []
         with self._lock:
+            if not self._deadlined:
+                return out
             for group, dq in self._groups.items():
                 keep = deque()
                 while dq:

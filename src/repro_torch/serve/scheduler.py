@@ -71,6 +71,10 @@ class ContinuousBatcher:
         #: caught up to this on re-arrival so banked credit can't starve
         #: the tenants that kept the server busy meanwhile
         self._vtime = 0.0
+        #: how often ``step`` walked the queue for expired requests, and
+        #: how often it skipped the walk (no deadlined request queued)
+        self.expiry_walks = 0
+        self.expiry_skips = 0
 
     # -- admission ----------------------------------------------------
 
@@ -113,8 +117,7 @@ class ContinuousBatcher:
             # not at the stale pass it parked on
             if state.pass_value < self._vtime:
                 state.pass_value = self._vtime
-            self.telemetry.record_admitted(tenant)
-            self.telemetry.gauge_depth(self.queue.depth)
+            self.telemetry.record_admitted(tenant, depth=self.queue.depth)
             return req.ticket
 
     # -- serving ------------------------------------------------------
@@ -123,6 +126,10 @@ class ContinuousBatcher:
         return self.queue.depth
 
     def _shed_expired(self) -> int:
+        if not self.queue.deadlined:
+            self.expiry_skips += 1
+            return 0
+        self.expiry_walks += 1
         now = self.clock()
         expired = self.queue.shed_expired(now)
         for r in expired:
@@ -155,7 +162,12 @@ class ContinuousBatcher:
         ``rt.serve.form`` (shedding, scheduling, the stacked batch, its
         ``k``), ``rt.serve.execute`` and ``rt.serve.resolve`` (responses,
         telemetry, each tenant's pass, the tickets: a caller's
-        ``on_done`` runs inside it)."""
+        ``on_done`` runs inside it).
+
+        Resolve does the batch's accounting first, once per tenant in
+        the batch (its telemetry in one call, its pass advanced once by
+        its count), then resolves the tickets in batch order: a caller's
+        ``on_done`` runs after the whole batch is accounted."""
         with span("serve.step"):
             with span("serve.form"):
                 self._shed_expired()
@@ -186,19 +198,30 @@ class ContinuousBatcher:
                 raise
             t_done = self.clock()
             with span("serve.resolve"):
+                compute_ms = compute_s * 1e3
+                resps = []
+                # tenant -> (queue waits, totals), in batch order
+                waits: dict[str, tuple[list, list]] = {}
                 for i, r in enumerate(batch):
                     kr = min(r.k, ids.shape[1])
                     queue_wait_ms = (t_formed - r.t_submit) * 1e3
                     total_ms = (t_done - r.t_submit) * 1e3
-                    resp = ServeResponse(
+                    resps.append(ServeResponse(
                         ids=ids[i, :kr], dists=dists[i, :kr],
                         tenant=r.tenant, latency_ms=total_ms,
                         queue_wait_ms=queue_wait_ms,
-                        compute_ms=compute_s * 1e3)
-                    self.telemetry.record_served(
-                        r.tenant, queue_wait_ms=queue_wait_ms,
-                        compute_ms=compute_s * 1e3, total_ms=total_ms)
-                    self.tenants[r.tenant].advance()
+                        compute_ms=compute_ms))
+                    w = waits.get(r.tenant)
+                    if w is None:
+                        w = waits[r.tenant] = ([], [])
+                    w[0].append(queue_wait_ms)
+                    w[1].append(total_ms)
+                for name, (qw, tot) in waits.items():
+                    self.telemetry.record_served_batch(
+                        name, queue_wait_ms=qw, compute_ms=compute_ms,
+                        total_ms=tot)
+                    self.tenants[name].advance(len(qw))
+                for r, resp in zip(batch, resps):
                     r.ticket.resolve(resp)
             self._vtime = max(self._vtime,
                               *(t.pass_value for t in self.tenants.values()))

@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 #: 128 * 8 bytes per histogram no matter how many requests it absorbs.
 _LO_MS = 1e-3
 _RATIO = 2.0 ** 0.25
+_LOG_RATIO = math.log(_RATIO)
 _N_BUCKETS = 128
 
 
@@ -42,7 +43,7 @@ class LatencyHistogram:
     def _bucket(ms: float) -> int:
         if ms <= _LO_MS:
             return 0
-        i = int(math.ceil(math.log(ms / _LO_MS) / math.log(_RATIO)))
+        i = int(math.ceil(math.log(ms / _LO_MS) / _LOG_RATIO))
         return min(max(i, 0), _N_BUCKETS - 1)
 
     @staticmethod
@@ -51,12 +52,38 @@ class LatencyHistogram:
         return _LO_MS * _RATIO ** i
 
     def record(self, ms: float) -> None:
+        self.record_n(ms, 1)
+
+    def record_n(self, ms: float, n: int) -> None:
+        """``n`` records of one value.  ``sum_ms`` takes ``n`` additions
+        of it, not ``n * ms``, so the state is that of ``n`` single
+        records."""
+        if n <= 0:
+            return
         ms = float(ms)
-        self.counts[self._bucket(ms)] += 1
-        self.count += 1
-        self.sum_ms += ms
+        self.counts[self._bucket(ms)] += n
+        self.count += n
+        total = self.sum_ms
+        for _ in range(n):
+            total += ms
+        self.sum_ms = total
         if ms > self.max_ms:
             self.max_ms = ms
+
+    def record_many(self, values) -> None:
+        """One :meth:`record` per value, in order."""
+        counts, bucket = self.counts, self._bucket
+        total, peak, n = self.sum_ms, self.max_ms, 0
+        for ms in values:
+            ms = float(ms)
+            counts[bucket(ms)] += 1
+            total += ms
+            if ms > peak:
+                peak = ms
+            n += 1
+        self.count += n
+        self.sum_ms = total
+        self.max_ms = peak
 
     def quantile(self, q: float) -> float:
         """Latency at quantile ``q`` in [0, 1] (0.0 when empty): the
@@ -147,34 +174,53 @@ class ServeTelemetry:
         self.depth_current = 0
         self.batches = 0
 
+    def _stats(self, name: str) -> TenantStats:
+        """``name``'s stats, made only when missing; the caller holds the
+        lock."""
+        st = self._tenants.get(name)
+        if st is None:
+            st = self._tenants[name] = TenantStats()
+        return st
+
     def tenant(self, name: str) -> TenantStats:
         with self._lock:
-            if name not in self._tenants:
-                self._tenants[name] = TenantStats()
-            return self._tenants[name]
+            return self._stats(name)
 
-    def record_admitted(self, name: str) -> None:
+    def record_admitted(self, name: str, *, depth: int) -> None:
+        """Count one admission and gauge the queue's ``depth`` after it,
+        under one lock."""
         with self._lock:
-            self._tenants.setdefault(name, TenantStats()).admitted += 1
+            self._stats(name).admitted += 1
+            self.depth_current = depth
+            if depth > self.depth_max:
+                self.depth_max = depth
 
     def record_shed(self, name: str, kind: str) -> None:
         """``kind`` in {"overload", "deadline", "closed"}."""
         with self._lock:
-            st = self._tenants.setdefault(name, TenantStats())
+            st = self._stats(name)
             setattr(st, f"shed_{kind}", getattr(st, f"shed_{kind}") + 1)
 
     def record_served(self, name: str, *, queue_wait_ms: float,
                       compute_ms: float, total_ms: float) -> None:
+        self.record_served_batch(name, queue_wait_ms=[queue_wait_ms],
+                                 compute_ms=compute_ms, total_ms=[total_ms])
+
+    def record_served_batch(self, name: str, *, queue_wait_ms: list,
+                            compute_ms: float, total_ms: list) -> None:
+        """One batch's served requests of tenant ``name``, in batch order,
+        under one lock: the same stats as one :meth:`record_served` per
+        request, all at the batch's one ``compute_ms``."""
         with self._lock:
-            st = self._tenants.setdefault(name, TenantStats())
-            st.served += 1
-            st.queue_wait.record(queue_wait_ms)
-            st.compute.record(compute_ms)
-            st.total.record(total_ms)
+            st = self._stats(name)
+            st.served += len(queue_wait_ms)
+            st.queue_wait.record_many(queue_wait_ms)
+            st.compute.record_n(compute_ms, len(queue_wait_ms))
+            st.total.record_many(total_ms)
 
     def record_recall(self, name: str, recall: float, n: int = 1) -> None:
         with self._lock:
-            st = self._tenants.setdefault(name, TenantStats())
+            st = self._stats(name)
             st.recall_sum += float(recall) * n
             st.recall_n += n
 

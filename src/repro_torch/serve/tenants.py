@@ -119,8 +119,13 @@ class TenantState:
         return self.params
 
     def advance(self, n: int = 1) -> None:
-        """Account ``n`` served requests against this tenant's share."""
-        self.pass_value += self._stride * n
+        """Account ``n`` served requests against this tenant's share:
+        ``pass_value`` is bit-equal to ``n`` single advances (``n``
+        additions of the stride, not ``stride * n``)."""
+        pv, stride = self.pass_value, self._stride
+        for _ in range(n):
+            pv += stride
+        self.pass_value = pv
         self.served += n
 
     def observe_served(self, *, recall: float,

@@ -204,6 +204,90 @@ def test_histogram_empty_and_merge():
     assert a.sum_ms == pytest.approx(101.0)
 
 
+def _batch_values(kind):
+    from repro_torch.serve.telemetry import _LO_MS, _N_BUCKETS, _RATIO
+    rng = np.random.default_rng(7)
+    if kind == "random":
+        return list(np.exp(rng.uniform(-9.0, 9.0, 300)))
+    if kind == "edges":
+        return [_LO_MS * _RATIO ** i for i in range(_N_BUCKETS)]
+    if kind == "low":
+        return [0.0, _LO_MS, _LO_MS / 2, _LO_MS * (1 - 1e-12), 1e-9]
+    return [_LO_MS * _RATIO ** (_N_BUCKETS + 5), 1e9, 1e300]     # "past"
+
+
+def _fields(h):
+    return (list(h.counts), h.count, h.sum_ms, h.max_ms, h.snapshot())
+
+
+@pytest.mark.parametrize("kind", ["random", "edges", "low", "past"])
+def test_histogram_batch_recording_equals_one_by_one(kind):
+    values = _batch_values(kind)
+    # one by one: the reference's histogram
+    one, rep1 = jax_serve.LatencyHistogram(), jax_serve.LatencyHistogram()
+    many, repn = LatencyHistogram(), LatencyHistogram()
+    for v in values:
+        one.record(v)
+        rep1.record(values[0])
+    many.record_many(values)
+    repn.record_n(values[0], len(values))
+    assert _fields(many) == _fields(one)
+    assert _fields(repn) == _fields(rep1)
+    # on top of earlier records, as a batch lands in a live histogram
+    one.record(3.25)
+    many.record_many([3.25])
+    rep1.record(0.125)
+    repn.record_n(0.125, 1)
+    assert _fields(many) == _fields(one) and _fields(repn) == _fields(rep1)
+
+
+def test_record_served_batch_equals_per_request():
+    rng = np.random.default_rng(3)
+    names = rng.choice(["a", "b", "c"], 64)
+    waits, totals = rng.exponential(2.0, 64), rng.exponential(9.0, 64)
+    # the reference records one request at a time
+    per, batched = jax_serve.ServeTelemetry(), serve.ServeTelemetry()
+    for n, w, t in zip(names, waits, totals):
+        per.record_served(n, queue_wait_ms=float(w), compute_ms=7.3,
+                          total_ms=float(t))
+    for name in ("a", "b", "c"):
+        sel = names == name
+        batched.record_served_batch(
+            name, queue_wait_ms=[float(w) for w in waits[sel]],
+            compute_ms=7.3, total_ms=[float(t) for t in totals[sel]])
+    assert batched.snapshot() == per.snapshot()
+    for name in ("a", "b", "c"):
+        for h in ("queue_wait", "compute", "total"):
+            assert (_fields(getattr(batched.tenant(name), h))
+                    == _fields(getattr(per.tenant(name), h)))
+
+
+def test_known_tenant_builds_no_stats(monkeypatch):
+    from repro_torch.serve import telemetry as tel
+    made = []
+
+    class Counting(tel.TenantStats):
+        def __init__(self, *a, **kw):
+            made.append(1)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(tel, "TenantStats", Counting)
+    t = tel.ServeTelemetry()
+    t.record_admitted("a", depth=1)
+    assert len(made) == 1
+    for _ in range(5):
+        t.record_admitted("a", depth=2)
+        t.record_served("a", queue_wait_ms=1.0, compute_ms=2.0, total_ms=3.0)
+        t.record_served_batch("a", queue_wait_ms=[1.0, 2.0], compute_ms=2.0,
+                              total_ms=[3.0, 4.0])
+        t.record_shed("a", "deadline")
+        t.record_recall("a", 0.9)
+    assert len(made) == 1
+    st = t.tenant("a")
+    assert (st.admitted, st.served, st.shed_deadline) == (6, 15, 5)
+    assert (t.depth_current, t.depth_max) == (2, 2)
+
+
 # ---------------------------------------------------------------------------
 # tenant specs
 # ---------------------------------------------------------------------------
@@ -332,6 +416,27 @@ def test_validate_query_shapes_and_dtypes():
         validate_query(np.zeros(4, np.float32), dim=8)
     with pytest.raises(TypeError, match="not numeric"):
         validate_query(np.array(["a", "b"]))
+
+
+def test_validate_query_fast_path_returns_the_array():
+    from repro.runtime.server import validate_query as jax_validate_query
+    q = np.arange(8, dtype=np.float32)
+    assert validate_query(q, 8) is q and validate_query(q) is q
+    view = np.zeros((3, 8), np.float32)[1]
+    assert validate_query(view, 8) is view
+    for bad in (np.zeros(8, np.float64), np.arange(8), np.zeros((2, 8)),
+                np.zeros((1, 8), np.float32), np.zeros((2, 8), np.float32),
+                np.zeros(7, np.float32), np.array([object()] * 8),
+                np.array(["a"] * 8), [1.0] * 8):
+        got = []
+        for fn in (validate_query, jax_validate_query):
+            try:
+                out = fn(bad, 8)
+                got.append(("ok", np.asarray(out).dtype,
+                            np.asarray(out).tolist()))
+            except (TypeError, ValueError) as e:
+                got.append((type(e).__name__, str(e)))
+        assert got[0] == got[1], bad
 
 
 def test_batcher_submit_validates_and_knows_tenants(ds, ivf):
@@ -540,6 +645,69 @@ def test_batcher_deadline_shed_typed(ds, indexes, monkeypatch):
     tw.check([live, doomed])
     tot = tw.port.telemetry.totals()
     assert tot.shed_deadline == 1 and tot.served == 1
+
+
+def test_expiry_walk_only_with_a_deadline_queued(ds, ivf):
+    clock = FakeClock()
+    b = ContinuousBatcher(ivf, _tenants(TenantSpec("a")), max_batch=2,
+                          clock=clock)
+    walked = []
+    real = b.queue.shed_expired
+    b.queue.shed_expired = lambda now: walked.append(now) or real(now)
+    for i in range(4):
+        b.submit(ds.queries[i], "a")
+    assert b.step() == 2 and b.step() == 2
+    assert (b.expiry_walks, b.expiry_skips, walked) == (0, 2, [])
+    assert b.queue.deadlined == 0
+    b.submit(ds.queries[5], "a")
+    dq = b.queue._groups[P16]
+    assert real(5.0) == [] and b.queue._groups[P16] is dq      # no walk
+    assert b.step() == 1
+    live = b.submit(ds.queries[0], "a")
+    doomed = b.submit(ds.queries[1], "a", deadline_ms=10.0)
+    assert b.queue.deadlined == 1
+    clock.t = 1.0
+    assert b.step() == 1
+    assert (b.expiry_walks, b.expiry_skips, walked) == (1, 3, [1.0])
+    with pytest.raises(DeadlineExceeded) as ei:
+        doomed.get()
+    assert ei.value.tenant == "a" and live.get().ids.shape == (10,)
+    assert b.queue.deadlined == 0
+    b.submit(ds.queries[2], "a", deadline_ms=5e3)
+    assert b.step() == 1 and b.queue.deadlined == 0
+    assert (b.expiry_walks, b.expiry_skips) == (2, 3)
+    tot = b.telemetry.totals()
+    assert tot.shed_deadline == 1 and tot.served == 7 and tot.accounted()
+
+
+def test_on_done_runs_after_the_batch_is_accounted(ds, ivf):
+    b = ContinuousBatcher(ivf, _tenants(TenantSpec("a"), TenantSpec("b")),
+                          max_batch=8)
+    seen = []
+
+    def on_done(ticket):
+        snap = b.telemetry.snapshot()["tenants"]
+        seen.append((snap["a"]["served"], snap["b"]["served"],
+                     b.tenants["a"].served, b.tenants["b"].served))
+
+    for i in range(6):
+        b.submit(ds.queries[i], "ab"[i % 2], on_done=on_done)
+    assert b.step() == 6
+    assert seen == [(3, 3, 3, 3)] * 6
+
+
+@pytest.mark.parametrize("weight", [3.0, 7.0, 0.3])
+def test_advance_n_bit_equal_to_n_single_advances(weight):
+    one, many = (resolve_tenants([TenantSpec("a", weight=weight)],
+                                 default_params=P16)["a"] for _ in range(2))
+    for n in (1, 5, 256, 3, 1000):
+        for _ in range(n):
+            one.advance()
+        many.advance(n)
+        assert many.pass_value == one.pass_value
+        assert many.served == one.served
+    # the product rounds otherwise: a test of n additions, not of stride * n
+    assert many.pass_value != many._stride * many.served
 
 
 def test_tenant_default_deadline_applies(ds, indexes, monkeypatch):
