@@ -1,46 +1,41 @@
 """One run of one cell: set-up, the measured window, the reference's
 verdict, the metrics.
 
-Set-up makes the vectors on the device from the seed, builds the port's
-``IvfBackend`` from them (k-means, cell split, cell-major layout, int8
-codes), puts a :class:`Proxy` of it under the serving tier's
-``ContinuousBatcher`` (one tenant at the configuration's operating point)
-and warms the one batch shape the cell's traffic uses.  The benchmark's
-own copy of the vectors then waits on the host, so the card holds what
-the deployment holds.  The window drives the batcher with the cell's
-traffic (``loadgen``).  After it, the window's peak device memory is read,
-the vectors come back to the card, the port's layout is judged, the
-port's state freed, and the reference computes the exact neighbours and
-its own search to judge every answer served.
+Set-up makes the vectors on the device from the seed, has the
+configuration's deployment (:mod:`portbench.deployments`) build the
+port's index from them, puts a :class:`Proxy` of it under the
+serving tier's ``ContinuousBatcher`` (one tenant at the configuration's
+operating point) and warms the one batch shape the cell's traffic uses.
+The benchmark's own copy of the vectors then waits on the host, so the
+card holds what the deployment holds.  The traffic's driver
+(:func:`run_window`) drives the batcher for the window.  After it, the
+window's peak device memory is read, the vectors come back to the card,
+the deployment reads its numbers off the port's state, that state is
+freed, and the reference judges every answer served.
 
 ``mode`` puts something else in the port's place for the control and the
-fault tests: ``"control"`` serves the reference's search in TF32
-(:mod:`portbench.reference.ivf`); ``"stale"``, ``"half"``, ``"alter"`` and
-``"narrow"`` break the port's answers after it computes them (the previous
-batch's answers; the second half of a batch given the first half's; one
-id of a batch changed; a search at half the operating point's cells);
-``"misassign"`` moves every row one cell on while the port builds, and
-``"frozen"`` leaves its k-means centroids at their starting values (every
-Lloyd step a no-op).
+fault tests: ``"control"`` serves the reference's search in TF32;
+``"stale"``, ``"half"``, ``"alter"`` and ``"narrow"`` break the port's
+answers after it computes them (the previous batch's answers; the second
+half of a batch given the first half's; one id of a batch changed; a
+search at half the operating point's ef); ``BUILD_FAULTS`` at the build.
 """
 from __future__ import annotations
 
 import gc
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from portbench import check, loadgen, tracing
+from portbench import check, loadgen, specs, tracing
 from portbench.data import make_vectors
-from portbench.reference import ivf as ref
 
-#: faults planted while the port builds its index
-BUILD_FAULTS = ("misassign", "frozen")
-MODES = ("program", "control", "stale", "half", "alter",
-         "narrow") + BUILD_FAULTS
+#: what serves in the port's place once it is built
+MODES = ("program", "control", "stale", "half", "alter", "narrow")
 
 
 class Proxy:
@@ -94,56 +89,6 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def check_supported(config: dict) -> None:
-    """The harness builds the port's ``ivf`` backend and its reference
-    knows the metrics in ``reference.ivf.METRICS``; another configuration
-    is refused here rather than judged by the wrong distances."""
-    backend = config["index"].get("backend", "ivf")
-    if backend != "ivf" or config["metric"] not in ref.METRICS:
-        raise ValueError(
-            f"{config['name']}: backend {backend!r} with metric "
-            f"{config['metric']!r}; the harness builds 'ivf' and its "
-            f"reference computes {ref.METRICS}")
-
-
-def _variant(index_cfg: dict):
-    from repro_torch.anns.engine import VariantConfig
-    return VariantConfig(backend="ivf", nlist=index_cfg["nlist"],
-                         nprobe=index_cfg["nprobe_at_ef64"],
-                         kmeans_iters=index_cfg["kmeans_iters"],
-                         max_cell=index_cfg["max_cell"],
-                         rerank_factor=index_cfg["rerank_factor"])
-
-
-def build_backend(config: dict, base_host: np.ndarray, seed: int, device,
-                  fault: str | None = None):
-    """The port's IvfBackend built on ``base_host`` (with one of
-    :data:`BUILD_FAULTS` planted); returns (backend, build seconds ending
-    in a synchronize)."""
-    from repro_torch.anns.backends.ivf import IvfBackend
-    from repro_torch.anns.ivf import kmeans, layout
-
-    backend = IvfBackend(_variant(config["index"]), metric=config["metric"],
-                         seed=int(seed), device=device)
-    real_assign, real_step = layout.assign, kmeans.lloyd_step
-    if fault == "misassign":
-        def shifted(x, centroids, **kw):
-            a, d = real_assign(x, centroids, **kw)
-            return ((a + 1) % len(centroids)).astype(a.dtype), d
-        layout.assign = shifted
-    elif fault == "frozen":
-        kmeans.lloyd_step = lambda *args, **kw: None
-    elif fault is not None:
-        raise ValueError(f"fault must be one of {BUILD_FAULTS}, got {fault!r}")
-    try:
-        t = time.perf_counter()
-        backend.build(base_host)
-        _sync(device)
-        return backend, time.perf_counter() - t
-    finally:
-        layout.assign, kmeans.lloyd_step = real_assign, real_step
-
-
 @dataclass
 class Setup:
     config: dict
@@ -154,24 +99,29 @@ class Setup:
     queries_host: np.ndarray
     backend: object
     build_s: float
+    deployment: object          # the module of deployments/
+    root: Path                  # where its deployments/ and loops/ are
     traffic: dict | None = None
+    loop: object = None         # the module of loops/
     proxy: Proxy | None = None
     batcher: object = None
     spans: loadgen.Spans | None = None
+    writes: list = field(default_factory=list)  # a driver's, in order
 
 
-def build(config: dict, seed: int, device, *,
-          fault: str | None = None) -> Setup:
-    """The cell's vectors from the seed and the port's index over them."""
-    check_supported(config)
+def build(config: dict, seed: int, device, *, fault: str | None = None,
+          root: Path = specs.PB_DIR) -> Setup:
+    """The cell's vectors from the seed and the port's index over them,
+    built by the configuration's deployment."""
+    dep = specs.deployment(config, root)
     base, queries = make_vectors(config["dataset"], seed, device)
     base_host = base.cpu().numpy()
-    backend, build_s = build_backend(config, base_host, seed, device,
-                                     fault=fault)
+    backend, build_s = dep.build(config, base_host, seed, device, fault)
     del base_host
     return Setup(config=config, seed=seed, device=device, base=base,
                  queries=queries, queries_host=queries.cpu().numpy(),
-                 backend=backend, build_s=build_s)
+                 backend=backend, build_s=build_s, deployment=dep,
+                 root=root)
 
 
 def serve(s: Setup, traffic: dict, *, traced: bool,
@@ -184,6 +134,7 @@ def serve(s: Setup, traffic: dict, *, traced: bool,
 
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    s.loop = specs.found("loops", traffic["loop"], s.root)
     params = SearchParams(k=s.config["k"],
                           ef=s.config["operating_point"]["ef"])
     s.traffic = traffic
@@ -193,6 +144,8 @@ def serve(s: Setup, traffic: dict, *, traced: bool,
         s.proxy, {loadgen.TENANT: TenantState(spec=TenantSpec(loadgen.TENANT),
                                               params=params)},
         max_batch=traffic["max_batch"], max_queue=traffic["max_queue"])
+    if hasattr(s.deployment, "serve"):
+        s.deployment.serve(s)
     _install(s, mode)
     warm(s)
     return s
@@ -204,7 +157,7 @@ def _install(s: Setup, mode: str) -> None:
     real = s.backend.search
     k = s.config["k"]
     if mode == "control":
-        r = _reference(s)
+        r = s.deployment.reference(s)
 
         def control(queries, params):
             ids, d = r.search(torch.as_tensor(queries, device=s.device),
@@ -271,61 +224,38 @@ def warm(s: Setup, rounds: int = 3) -> None:
 
 
 def run_window(s: Setup, seconds: float) -> loadgen.Window:
-    t = s.traffic
-    draws = loadgen.QueryDraws(len(s.queries_host), s.seed)
+    """``drive(setup, seconds)`` of ``loops/<loop>.py``: the window of
+    every request; it may make the backend's writes (in ``setup.writes``)
+    and keep on the window what a deployment's judge reads.  Its
+    ``RECALL`` names the recall that ``recall_at_10`` reports."""
     s.proxy.reset()
-    if t["loop"] == "closed":
-        return loadgen.closed_loop(s.batcher, s.queries_host, draws,
-                                   clients=t["clients"], seconds=seconds,
-                                   spans=s.spans)
-    if t["loop"] == "open":
-        arrivals = loadgen.poisson_arrivals(t["rate_qps"], seconds, s.seed)
-        return loadgen.open_loop(s.batcher, s.queries_host, draws, arrivals,
-                                 seconds=seconds, spans=s.spans)
-    raise ValueError(f"unknown loop {t['loop']!r}")
-
-
-def _reference(s: Setup) -> ref.IvfReference:
-    """The reference search over the raw base, following the port's
-    centroids and assignment (the stage it takes from the port)."""
-    idx = s.backend.index
-    cfg = s.config
-    k = cfg["k"]
-    m = max(k, min(cfg["index"]["rerank_factor"] * k, s.base.shape[0]))
-    return ref.IvfReference(
-        s.base, idx.centroids.to(s.device),
-        check.cell_of_row(idx, s.base.shape[0], s.device),
-        nprobe=cfg["operating_point"]["nprobe"], m=m, k=k)
+    return s.loop.drive(s, seconds)
 
 
 class Answers:
     """The reference's answers for one built index: the exact k of every
-    query, and its IVF search's answer to each query asked, computed once
-    each."""
+    query, its search's answer to each query asked, computed once each."""
 
-    def __init__(self, s: Setup, search: ref.IvfReference):
+    def __init__(self, s: Setup, search):
         k = s.config["k"]
         self.search = search
-        self.gt_ids, self.gt_d = ref.exact_knn(s.base, s.queries, k)
+        self.gt_ids, self.gt_d = search.exact(s.queries)
         self.gt_host = self.gt_ids.cpu().numpy()
         nq = s.queries.shape[0]
         dev = s.device
-        self.ivf_ids = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
-        self.ivf_d = torch.full((nq, k), np.inf, dtype=torch.float64,
+        self.ref_ids = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
+        self.ref_d = torch.full((nq, k), np.inf, dtype=torch.float64,
                                 device=dev)
         self._done = np.zeros(nq, bool)
         self._queries = s.queries
-        self.cell_err = ref.cell_error_ratio(s.base, self.search.centroids,
-                                             self.search.cell_of_row)
-        self.centroid_gap = ref.centroid_gap(s.base, self.search.centroids,
-                                             self.search.cell_of_row)
+        self.index = s.deployment.index_numbers(s, search)
 
-    def ivf(self, qidx: np.ndarray) -> None:
+    def asked(self, qidx: np.ndarray) -> None:
         todo = np.unique(qidx)
         todo = todo[~self._done[todo]]
         if len(todo):
-            u = torch.as_tensor(todo, device=self.ivf_ids.device)
-            self.ivf_ids[u], self.ivf_d[u] = self.search.search(
+            u = torch.as_tensor(todo, device=self.ref_ids.device)
+            self.ref_ids[u], self.ref_d[u] = self.search.search(
                 self._queries[u], precision="fp64")
             self._done[todo] = True
 
@@ -333,8 +263,7 @@ class Answers:
 def free_program(s: Setup) -> None:
     """Drop the port's index and serving objects, and their device
     memory."""
-    s.backend.index = None
-    s.batcher = s.proxy = None
+    s.backend = s.batcher = s.proxy = None
     gc.collect()
     if torch.device(s.device).type == "cuda":
         torch.cuda.empty_cache()
@@ -368,57 +297,62 @@ def served(win: loadgen.Window, k: int) -> Served:
              else np.full((len(ids), k), -1, np.int64)),
         dists=(np.stack(dists).astype(np.float64) if dists and shape_ok
                else np.full((len(dists), k), np.inf)),
-        queue_wait_ms=np.asarray(win.queue_wait_ms, np.float64)[ok])
+        queue_wait_ms=a["queue_wait_ms"][ok])
 
 
-def judge(s: Setup, answers: Answers, win: loadgen.Window, sv: Served,
-          layout: int) -> tuple[bool, dict, dict]:
-    """Compare every answer with the reference's; returns (correct,
-    checks, numbers)."""
-    k = s.config["k"]
+def served_numbers(s: Setup, answers: Answers, win: loadgen.Window,
+                   sv: Served) -> dict:
+    """:func:`portbench.check.served_numbers` over every answer served,
+    and the recall of those delivered in the window and of all."""
     qi = sv.qidx[sv.ok]
-    answers.ivf(qi)
+    answers.asked(qi)
     nums = check.served_numbers(s.base, s.queries, qi, sv.ids, sv.dists,
-                                answers.gt_d, answers.ivf_ids,
-                                answers.ivf_d, k)
-    nums["layout"] = layout
-    nums["unanswered"] = int((~sv.ok).sum()) - win.shed - win.errors
-    nums["cell_err"] = answers.cell_err
-    nums["centroid_gap"] = answers.centroid_gap
+                                answers.gt_d, answers.ref_ids,
+                                answers.ref_d, s.config["k"])
     inw = sv.in_window[sv.ok]
     nums["recall_window"] = check.recall(sv.ids[inw],
                                          answers.gt_host[qi[inw]])
     nums["recall_all"] = check.recall(sv.ids, answers.gt_host[qi])
-    ok, checks = check.verdict(nums, s.config["limits"])
-    return ok, checks, nums
+    return nums
 
 
-@dataclass
-class Run:
-    """What a per-layer reader reads: the run's requests (``served``), its
-    batches (``window``), the rows handed to the search (``proxy_rows``),
-    the trace, the index's shape.  A cell added with readers of its own
-    finds here what the window recorded."""
-    config: dict
-    build_s: float
-    window: loadgen.Window
-    served: Served
-    proxy_rows: int
-    batches: list             # the queries of each search call (traced)
-    trace: tracing.TraceSummary | None
-    centroids: torch.Tensor   # the port's, on the device
-    cell_sizes: np.ndarray
-    cell_pad: int
-    card: dict
-    least: dict | None = None   # roofline.window_least_s, once counted
+def judge(s: Setup, answers: Answers, win: loadgen.Window, sv: Served,
+          program: dict) -> tuple[bool, dict, dict]:
+    """The served numbers (the deployment's ``judge`` where it has one),
+    ``program``'s and the index's; returns (correct, checks, numbers)."""
+    nums = getattr(s.deployment, "judge", served_numbers)(s, answers, win,
+                                                          sv)
+    nums.update(program)
+    nums["unanswered"] = int((~sv.ok).sum()) - win.shed - win.errors
+    nums.update(answers.index)
+    return (*verdict(nums, s.config["limits"]), nums)
+
+
+def verdict(nums: dict, limits: dict) -> tuple[bool, dict]:
+    """:func:`portbench.check.verdict`, then every other number limited."""
+    _, checks = check.verdict(nums, limits)
+    checks.update({name: {"value": nums[name], "limit": limit}
+                   for name, limit in limits.items() if name not in checks})
+    return all(c["value"] <= c["limit"] for c in checks.values()), checks
+
+
+class Run(SimpleNamespace):
+    """What a per-layer reader reads: ``config``, ``build_s``, ``served``,
+    ``window``, ``proxy_rows`` (rows handed to the search), ``batches``
+    (each search call's queries, traced), ``trace``, ``card``, and the
+    deployment's ``run_fields``."""
+    least = None    # roofline.window_least_s, once counted
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device, *,
-        t_start: float, mode: str = "program", readers=None) -> dict:
-    """One run of ``cell`` (a :class:`portbench.specs.Cell`); returns the
-    result line's fields."""
-    fault = mode if mode in BUILD_FAULTS else None
-    s = build(cell.config, seed, device, fault=fault)
+        t_start: float, mode: str = "program", readers=None,
+        root: Path = specs.PB_DIR) -> dict:
+    """One run of ``cell`` (a :class:`portbench.specs.Cell`), its modules
+    found in ``root``; returns the result line's fields."""
+    dep = specs.deployment(cell.config, root)
+    specs.found("loops", cell.traffic["loop"], root)
+    fault = mode if mode in dep.BUILD_FAULTS else None
+    s = build(cell.config, seed, device, fault=fault, root=root)
     serve(s, cell.traffic, traced=trace, mode="program" if fault else mode)
     cuda = torch.device(device).type == "cuda"
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -436,24 +370,20 @@ def run(cell, seed: int, seconds: float, trace: bool, device, *,
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     unpark(s)
     sv = served(win, cell.config["k"])
-    idx = s.backend.index
-    layout = check.layout_faults(idx, s.base, cell.config["index"]["max_cell"])
+    program = dep.program_numbers(s)
     run_rec = Run(config=cell.config, build_s=s.build_s, window=win,
                   served=sv, proxy_rows=s.proxy.rows, batches=s.proxy.batches,
-                  trace=summary, centroids=idx.centroids.float().clone(),
-                  cell_sizes=np.diff(np.asarray(idx.offsets, np.int64)),
-                  cell_pad=idx.cell_pad, card=_card(device))
+                  trace=summary, **dep.run_fields(s), card=_card(device))
     t_ref = time.perf_counter()
-    search = _reference(s)
-    del idx
+    search = dep.reference(s)
     free_program(s)
     answers = Answers(s, search)
-    ok, checks, nums = judge(s, answers, win, sv, layout)
+    ok, checks, nums = judge(s, answers, win, sv, program)
     nums["reference_s"] = time.perf_counter() - t_ref
     nums["setup_peak_bytes"] = int(setup_peak)
 
-    e2e = {m.name: _end_to_end(m.name, cell.traffic["loop"], setup_s, win,
-                               sv, nums) for m in cell.end_to_end}
+    e2e = {m.name: _end_to_end(m.name, s.loop.RECALL, setup_s, win, sv,
+                               nums) for m in cell.end_to_end}
     out = {"correct": bool(ok), "attempted": int(len(sv.qidx)),
            "failed": int(win.shed + win.errors + nums["unanswered"]),
            "setup_s": setup_s, "e2e": e2e,
@@ -484,11 +414,10 @@ def percentile(values: np.ndarray, q: float) -> float:
     return float(v[lo] + (v[hi] - v[lo]) * (pos - lo))
 
 
-def _end_to_end(name: str, loop: str, setup_s: float, win, sv: Served,
+def _end_to_end(name: str, recall: str, setup_s: float, win, sv: Served,
                 nums: dict) -> float:
-    """A closed loop's rate and recall count what was delivered inside the
-    window; an open loop's tail and recall count every request due in
-    it, answered when it was."""
+    """A rate counts what was delivered inside the window, a tail every
+    request due in it; ``recall`` is the driver's ``RECALL``."""
     if name == "setup_s":
         return setup_s
     if name == "qps":
@@ -496,5 +425,5 @@ def _end_to_end(name: str, loop: str, setup_s: float, win, sv: Served,
     if name == "p95_ms":
         return percentile(sv.latency_ms, 95)
     if name == "recall_at_10":
-        return nums["recall_window" if loop == "closed" else "recall_all"]
+        return nums[recall]
     raise KeyError(f"no end-to-end metric {name!r}")

@@ -34,14 +34,13 @@ ANSWER_MODES = ("control", "stale", "half", "alter", "narrow")
 def readings(s, answers, traffic, mode: str, seconds: float) -> dict:
     import numpy as np
 
-    from portbench import cell, check
+    from portbench import cell
 
     cell.serve(s, traffic, traced=False, mode=mode)
     win = cell.run_window(s, seconds)
     sv = cell.served(win, s.config["k"])
-    layout = check.layout_faults(s.backend.index, s.base,
-                                 s.config["index"]["max_cell"])
-    ok, _, nums = cell.judge(s, answers, win, sv, layout)
+    ok, _, nums = cell.judge(s, answers, win, sv,
+                             s.deployment.program_numbers(s))
     e2e = {"qps": float(sv.in_window.sum()) / seconds,
            "p95_ms": cell.percentile(sv.latency_ms, 95),
            "search_ms": float(np.mean(win.batch_compute_ms))
@@ -59,7 +58,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--fault-seconds", type=float, default=3.0)
     ap.add_argument("--answer-faults", default=",".join(ANSWER_MODES))
-    ap.add_argument("--build-faults", default="misassign,frozen")
+    ap.add_argument("--build-faults")   # the deployment's by default
     args = ap.parse_args(argv)
 
     import torch
@@ -75,9 +74,8 @@ def main(argv=None) -> int:
     answer_faults = tuple(x for x in args.answer_faults.split(",") if x)
     for seed in [int(x) for x in args.seeds.split(",") if x]:
         s = cell.build(config, seed, "cuda:0")
-        print(json.dumps({"seed": seed, "build_s": s.build_s,
-                          "nlist": s.backend.index.nlist}), flush=True)
-        answers = cell.Answers(s, cell._reference(s))
+        print(json.dumps({"seed": seed, "build_s": s.build_s}), flush=True)
+        answers = cell.Answers(s, s.deployment.reference(s))
         modes = ("program",) + (answer_faults if seed in fault_seeds
                                 else ())
         for c in cells:
@@ -90,15 +88,17 @@ def main(argv=None) -> int:
         del s, answers
         gc.collect()
         torch.cuda.empty_cache()
+    faults = args.build_faults
+    build_faults = ([x for x in faults.split(",") if x] if faults
+                    else specs.deployment(config).BUILD_FAULTS)
     for seed in fault_seeds:
-        for fault in [x for x in args.build_faults.split(",") if x]:
+        for fault in build_faults:
             s = cell.build(config, seed, "cuda:0", fault=fault)
-            answers = cell.Answers(s, cell._reference(s))
+            answers = cell.Answers(s, s.deployment.reference(s))
             out = readings(s, answers, cells[0].traffic, "program",
                            args.fault_seconds)
             print(json.dumps({"seed": seed, "cell": cells[0].name,
-                              "mode": fault, "build_s": s.build_s,
-                              "nlist": s.backend.index.nlist, **out}),
+                              "mode": fault, "build_s": s.build_s, **out}),
                   flush=True)
             del s, answers
             gc.collect()

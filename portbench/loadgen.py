@@ -58,38 +58,52 @@ class QueryDraws:
         return int(self._buf[self._i - 1])
 
 
+#: a request's numbers, each in an array that doubles as it fills
+NUMBERS = ("qidx", "t_due", "t_submit", "t_done", "queue_wait_ms")
+CAPACITY = 1 << 16
+
+
+def _nan() -> np.ndarray:
+    return np.full(CAPACITY, np.nan)
+
+
 @dataclass
 class Window:
-    """What one window served.  Times are seconds from the window's start
-    on the host clock; ``t_done`` is NaN for a request never answered."""
+    """What one window served: ``n`` requests.  Times are seconds from the
+    window's start on the host clock; ``t_done`` is NaN for a request
+    never answered.  The numbers sit in arrays and the answers (``ids``,
+    ``dists``, None until answered) in lists of arrays, so the garbage
+    collector walks none of them, as it would not a caller's elsewhere."""
     seconds: float
-    qidx: list = field(default_factory=list)
-    t_due: list = field(default_factory=list)
-    t_submit: list = field(default_factory=list)
-    t_done: list = field(default_factory=list)
+    n: int = 0
+    qidx: np.ndarray = field(default_factory=_nan)
+    t_due: np.ndarray = field(default_factory=_nan)
+    t_submit: np.ndarray = field(default_factory=_nan)
+    t_done: np.ndarray = field(default_factory=_nan)
+    queue_wait_ms: np.ndarray = field(default_factory=_nan)
     ids: list = field(default_factory=list)
     dists: list = field(default_factory=list)
-    queue_wait_ms: list = field(default_factory=list)
     shed: int = 0
     errors: int = 0
     backlog_at_close: int = 0
     batch_compute_ms: list = field(default_factory=list)
 
     def add(self, qidx: int, t_due: float, t_submit: float) -> int:
-        self.qidx.append(qidx)
-        self.t_due.append(t_due)
-        self.t_submit.append(t_submit)
-        self.t_done.append(float("nan"))
+        i = self.n
+        if i == len(self.qidx):
+            for name in NUMBERS:
+                a = getattr(self, name)
+                setattr(self, name, np.append(a, np.full_like(a, np.nan)))
+        self.qidx[i], self.t_due[i], self.t_submit[i] = qidx, t_due, t_submit
         self.ids.append(None)
         self.dists.append(None)
-        self.queue_wait_ms.append(float("nan"))
-        return len(self.qidx) - 1
+        self.n = i + 1
+        return i
 
     def arrays(self) -> dict:
-        return {"qidx": np.asarray(self.qidx, np.int64),
-                "t_due": np.asarray(self.t_due, np.float64),
-                "t_submit": np.asarray(self.t_submit, np.float64),
-                "t_done": np.asarray(self.t_done, np.float64)}
+        a = {name: getattr(self, name)[:self.n] for name in NUMBERS}
+        a["qidx"] = a["qidx"].astype(np.int64)
+        return a
 
 
 class Spans:
@@ -107,15 +121,18 @@ class Spans:
         return record_function(f"pb.{name}")
 
 
-def _on_done(done: list, i: int, clock, ticket) -> None:
-    done.append((i, ticket, clock()))
+def _on_done(done: list, key: int, clock, ticket) -> None:
+    done.append((key, ticket, clock()))
 
 
-def _collect(win: Window, done: list, t0: float, batches: list) -> list:
+def _collect(win: Window, done: list, t0: float, batches: list,
+             request=None) -> list:
     """Record the answers delivered since the last call; returns their
-    request numbers."""
+    keys: request numbers, or clients where ``request`` maps each to its
+    open request."""
     out = []
-    for i, ticket, t in done:
+    for key, ticket, t in done:
+        i = key if request is None else request[key]
         if ticket.error is not None:
             win.errors += 1
         else:
@@ -125,7 +142,7 @@ def _collect(win: Window, done: list, t0: float, batches: list) -> list:
             win.dists[i] = r.dists
             win.queue_wait_ms[i] = r.queue_wait_ms
             batches.append(r.compute_ms)
-        out.append(i)
+        out.append(key)
     done.clear()
     return out
 
@@ -135,14 +152,14 @@ def closed_loop(batcher, queries: np.ndarray, draws: QueryDraws, *,
                 clock=time.perf_counter) -> Window:
     win, done = Window(seconds), []
     submit = batcher.submit
-    client_of = {}
+    request = [0] * clients                 # each client's open request
+    on_done = [partial(_on_done, done, c, clock) for c in range(clients)]
 
     def send(client: int, t0: float) -> None:
         q = draws.next()
         t = clock() - t0
-        i = win.add(q, t, t)
-        client_of[i] = client
-        submit(queries[q], TENANT, on_done=partial(_on_done, done, i, clock))
+        request[client] = win.add(q, t, t)
+        submit(queries[q], TENANT, on_done=on_done[client])
 
     t0 = clock()
     t_end = t0 + seconds
@@ -154,9 +171,9 @@ def closed_loop(batcher, queries: np.ndarray, draws: QueryDraws, *,
             batcher.step()
         with spans("deliver"):
             batch = []
-            for i in _collect(win, done, t0, batch):
+            for c in _collect(win, done, t0, batch, request):
                 if clock() < t_end:
-                    send(client_of[i], t0)
+                    send(c, t0)
             if batch:
                 win.batch_compute_ms.append(batch[0])
     win.backlog_at_close = batcher.pending()
@@ -164,7 +181,7 @@ def closed_loop(batcher, queries: np.ndarray, draws: QueryDraws, *,
         t_stop = clock() + DRAIN_S
         while batcher.pending() and clock() < t_stop:
             batcher.step()
-        _collect(win, done, t0, [])
+        _collect(win, done, t0, [], request)
     return win
 
 

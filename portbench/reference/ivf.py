@@ -127,6 +127,10 @@ class IvfReference:
         self.nprobe = min(int(nprobe), centroids.shape[0])
         self.m, self.k = int(m), int(k)
 
+    def exact(self, queries: torch.Tensor):
+        """:func:`exact_knn` of ``queries`` over the whole base."""
+        return exact_knn(self.base, queries, self.k)
+
     def search(self, queries: torch.Tensor,
                precision: str = "fp64") -> tuple[torch.Tensor, torch.Tensor]:
         """(ids (B, k) int64, dists (B, k)) for queries (B, d); -1 / inf

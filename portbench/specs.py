@@ -2,13 +2,14 @@
 
 ``BENCHMARK.json`` at the root of the checkout names every cell, the
 configuration and traffic mix it runs and the metrics it reports; this
-module reads it and the data files it points at.  Nothing here names a
-cell: a new cell is a new entry and new data files.
+module reads it and finds by name the files and code a cell runs.
+Nothing here names a cell: a new cell is a new entry and new files.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -71,13 +72,38 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
                 end_to_end=e2e, per_layer=layer)
 
 
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """The ``read(run)`` function of ``metrics/<metric>.py``."""
     path = PB_DIR / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_')}", path)
-    if spec is None or not path.exists():
+    if not path.exists():
         raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"portbench_metric_{metric.replace('.', '_')}").read
+
+
+def found(kind: str, name: str, root: Path = PB_DIR):
+    """The module ``<root>/<kind>/<name>.py``."""
+    have = sorted(p.stem for p in (root / kind).glob("*.py")
+                  if p.stem != "__init__")
+    if name not in have:
+        raise ValueError(f"no {kind}/{name}.py in {root}: it has {have}, "
+                         "and the reference computes what those serve")
+    return _load(root / kind / f"{name}.py", f"portbench_{kind}_{name}")
+
+
+def deployment(config: dict, root: Path = PB_DIR):
+    """The deployment of ``config``'s index (``deployments/``)."""
+    backend = config["index"].get("backend", "ivf")
+    dep = found("deployments", backend, root)
+    if config["metric"] not in dep.METRICS:
+        raise ValueError(
+            f"{config['name']}: metric {config['metric']!r}; the "
+            f"{backend!r} reference computes {dep.METRICS}")
+    return dep

@@ -27,7 +27,7 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 def test_cell_found_by_name(w):
     c = specs.find_cell(w["name"])
     assert c.config["name"] == w["config"]
-    assert c.traffic["loop"] in ("closed", "open")
+    assert (specs.PB_DIR / "loops" / f"{c.traffic['loop']}.py").is_file()
     names = {m.name for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.per_layer:
@@ -80,12 +80,13 @@ def test_tail_counts_every_request_and_rate_the_whole_window():
     done = due + 0.001
     ok = np.arange(100) < 90
     win, sv = _served(due, done, 1.0, ok)
-    assert cell._end_to_end("p95_ms", "open", 0.0, win, sv, {}) == np.inf
+    assert cell._end_to_end("p95_ms", "recall_all", 0.0, win, sv,
+                            {}) == np.inf
     win, sv = _served(due, done + 0.5, 1.0)
     # answers after the close do not count towards the closed loop's rate
-    assert cell._end_to_end("qps", "closed", 0.0, win, sv, {}) == \
+    assert cell._end_to_end("qps", "recall_window", 0.0, win, sv, {}) == \
         float((done + 0.5 <= 1.0).sum())
-    assert cell._end_to_end("p95_ms", "open", 0.0, win, sv, {}) == \
+    assert cell._end_to_end("p95_ms", "recall_all", 0.0, win, sv, {}) == \
         pytest.approx(501.0)
 
 
@@ -181,6 +182,22 @@ def test_closed_loop_resubmits_until_the_close():
     # ten steps of 0.25 s fit the window, four clients each
     assert int(sv.in_window.sum()) == 40
     assert sv.ok.all() and len(win.batch_compute_ms) == 10
+
+
+def test_window_grows_past_its_capacity(monkeypatch):
+    monkeypatch.setattr(loadgen, "CAPACITY", 4)
+    win = loadgen.Window(1.0)
+    for i in range(11):
+        assert win.add(10 + i, 0.01 * i, 0.02 * i) == i
+        if i % 2:
+            win.t_done[i] = 0.5
+    a = win.arrays()
+    assert win.n == 11 and len(win.qidx) == 16 and len(win.ids) == 11
+    assert a["qidx"].tolist() == list(range(10, 21))
+    assert a["t_submit"] == pytest.approx([0.02 * i for i in range(11)])
+    assert np.isnan(a["t_done"][::2]).all()
+    assert (a["t_done"][1::2] == 0.5).all()
+    assert np.isnan(a["queue_wait_ms"]).all()
 
 
 def test_scan_bytes_for_hand_made_probes():

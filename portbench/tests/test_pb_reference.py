@@ -126,7 +126,7 @@ def test_harness_loads_no_jax():
     mods = _modules_after(
         "import copy, time\n"
         "from portbench import cell, check, control, loadgen, roofline, "
-        "specs, sweep_open, tracing\n"
+        "specs, tracing\n"
         "from portbench import run\n"
         "c = specs.find_cell('gist1m-ivf.closed256')\n"
         "cfg = copy.deepcopy(c.config)\n"
